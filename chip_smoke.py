@@ -1,0 +1,298 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (icp_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failed check ends the run with a non-zero exit code):
+  1. require CUDA; print the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from icp_tpu_torch/csrc with nvcc;
+  3. hold each kernel against its plain torch version on the card at the
+     main path's shapes (plus ragged and tie cases), and icp_core with the
+     kernel against icp_core with the plain query;
+  4. drive the main path: the 200-scan x 720-beam bench sequence through
+     SlamEngine (first scan, then batches of 16, finish, sync_map) with
+     the kernels' launch counters reset just before; check both counters
+     are > 0, the poses and map are finite, and ATE <= 0.050 m;
+  5. time a second, warm pass (scans/s) and each kernel against its plain
+     version (CUDA events) at the main path's shapes.
+The last two lines are a JSON summary of the kernels and
+{"ok": true, "device": {...}}. Imports neither jax nor icp_tpu nor yaml.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+N_SCANS, N_BEAMS, BATCH = 200, 720, 16
+ATE_BOUND_M = 0.050       # icp_tpu scores 0.0416 m on this sequence
+RTOL, ATOL = 1e-4, 1e-5   # kernel vs plain d2 (indices must be equal)
+
+# bench.py's configuration (BASELINE config #3: IMU + submap, no loop closure)
+BENCH_CFG = {
+    "imu": {"enabled": True, "narrow_search_range": 3.0},
+    "icp": {"method": "point_to_line", "normal_k": 16, "voxel_size": 0.04,
+            "error_threshold": 1e-10, "max_iterations": 150,
+            "error_reject_threshold": 0.5},
+    "features": {"method": "rotation_search", "rotation_voxel_size": 0.15,
+                 "angle_step_coarse": 1.5, "angle_step_fine": 0.1},
+    "submap": {"enabled": True, "size": 40, "voxel_size": 0.05,
+               "max_corr_dist": 1.5, "rotation_range": 60.0,
+               "rotation_step": 0.8, "rotation_fine_step": 0.05,
+               "rotation_voxel_size": 0.15},
+    "loop_closure": {"enabled": False},
+    "filter": {"z_min": 0.5, "z_max": 2.0},
+    "mapping": {"resolution": 0.05, "margin": 50.0},
+    "service": {"loop": False},
+    "display": {"live_map": False},
+    "tpu": {"scan_capacity": 768, "submap_capacity": 4096,
+            "max_ray_cells": 448, "batch_scans": BATCH, "nn_impl": "auto"},
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def time_ms(fn, iters=100):
+    """Mean device time of fn() in ms over ``iters`` launches (CUDA events)."""
+    for _ in range(5):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _cloud(rng, n, lo=-20.0, hi=20.0):
+    return rng.uniform(lo, hi, (n, 2)).astype(np.float32)
+
+
+def check_kernels(dev) -> dict:
+    """Phase 3: each kernel against its plain version; returns the max
+    absolute d2 error per kernel."""
+    from icp_tpu_torch.models.icp import icp_core
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    rng = np.random.default_rng(3)
+    err = {"nn": 0.0, "nn_min": 0.0}
+
+    # nn_cuda: the tie case of bench.py (duplicate targets), random data at
+    # the submap-ICP shape, and a ragged shape
+    base = rng.uniform(-5, 5, (512, 2)).astype(np.float32)
+    cases = [(rng.uniform(-5, 5, (768, 2)).astype(np.float32),
+              np.concatenate([base, base[:256]]), np.arange(768) < 700),
+             (_cloud(rng, 768), _cloud(rng, 4096), rng.random(4096) < 0.9),
+             (_cloud(rng, 700), _cloud(rng, 4000), rng.random(4000) < 0.9)]
+    for src, tgt, msk in cases:
+        s, g, m = t(src), t(tgt), t(msk)
+        d_k, i_k = K.nn_cuda(s, g, m)
+        d_p, i_p = K.nn_plain(s, g, m)
+        torch.cuda.synchronize()
+        assert torch.equal(i_k, i_p), f"nn_cuda indices != plain at {src.shape}x{tgt.shape}"
+        assert torch.allclose(d_k, d_p, rtol=RTOL, atol=ATOL), "nn_cuda d2 != plain"
+        err["nn"] = max(err["nn"], float((d_k - d_p).abs().max()))
+        log(f"  nn_cuda {src.shape[0]}x{tgt.shape[0]}: indices equal, "
+            f"max |d2 err| {float((d_k - d_p).abs().max()):.3g}")
+
+    # nn_min_cuda: the fine sweep's 20 x 768 rows, ragged rows, all-masked
+    for rows, tgt, msk in [
+            (_cloud(rng, 20 * 768), _cloud(rng, 4096), rng.random(4096) < 0.9),
+            (_cloud(rng, 13 * 700 + 3), _cloud(rng, 4000), rng.random(4000) < 0.9),
+            (_cloud(rng, 300), _cloud(rng, 1000), np.zeros(1000, bool))]:
+        r, g, m = t(rows), t(tgt), t(msk)
+        d_k = K.nn_min_cuda(r, g, m)
+        d_p = K.nn_min_plain(r, g, m)
+        torch.cuda.synchronize()
+        assert torch.allclose(d_k, d_p, rtol=RTOL, atol=ATOL), \
+            f"nn_min_cuda != plain at {rows.shape}x{tgt.shape}"
+        if not msk.any():
+            assert bool((d_k == np.float32(1e30)).all()), "all-masked rows must be BIG"
+        err["nn_min"] = max(err["nn_min"], float((d_k - d_p).abs().max()))
+        log(f"  nn_min_cuda {rows.shape[0]}x{tgt.shape[0]}: max |d2 err| "
+            f"{float((d_k - d_p).abs().max()):.3g}")
+
+    # icp_core with the kernel ("auto") against the plain query ("xla")
+    tgt = rng.uniform(-5, 5, (768, 2)).astype(np.float32)
+    th = 0.05
+    c, s_ = np.cos(th), np.sin(th)
+    src = (tgt - [0.2, -0.1]) @ np.array([[c, -s_], [s_, c]], np.float32)
+    m = torch.ones(768, dtype=torch.bool, device=dev)
+    eye = torch.eye(2, device=dev)
+    z = torch.zeros(2, device=dev)
+    kw = dict(method="point_to_point", max_iterations=60, error_threshold=1e-10)
+    a = icp_core(t(src.astype(np.float32)), m, t(tgt), m, eye, z, nn_impl="xla", **kw)
+    b = icp_core(t(src.astype(np.float32)), m, t(tgt), m, eye, z, nn_impl="auto", **kw)
+    assert int(a.iters) == int(b.iters), (int(a.iters), int(b.iters))
+    assert torch.allclose(b.R, a.R, atol=1e-6, rtol=0), "icp_core R: kernel != plain"
+    assert torch.allclose(b.t, a.t, atol=1e-5, rtol=0), "icp_core t: kernel != plain"
+    log(f"  icp_core kernel vs plain query: {int(a.iters)} iterations each, "
+        f"|dR| {float((b.R - a.R).abs().max()):.3g}, "
+        f"|dt| {float((b.t - a.t).abs().max()):.3g}")
+    return err
+
+
+def load_sequence(td):
+    from icp_tpu_torch.engine import filter_and_flatten
+    from icp_tpu_torch.services.imu import IMUService
+    from icp_tpu_torch.services.lidar import LidarService
+    from icp_tpu_torch.utils.synth import generate_sequence
+
+    lidar_csv = os.path.join(td, "bench_lidar.csv")
+    imu_csv = os.path.join(td, "bench_imu.csv")
+    gt = generate_sequence(lidar_csv, imu_csv, n_scans=N_SCANS,
+                           n_beams=N_BEAMS, noise=0.005, trajectory="loop",
+                           seed=42)
+    scans, rels = [], []
+    for _, rel, raw in LidarService(lidar_csv).scans():
+        scans.append(filter_and_flatten(raw, BENCH_CFG["filter"]["z_min"],
+                                        BENCH_CFG["filter"]["z_max"]))
+        rels.append(rel)
+    return gt, scans, rels, IMUService(imu_csv)
+
+
+def run_engine(cfg, imu, scans, rels, dev):
+    """The main path as a user drives it; returns (engine, seconds)."""
+    from icp_tpu_torch.engine import SlamEngine
+
+    eng = SlamEngine(cfg, imu=imu, verbose=False, device=dev)
+    t0 = time.perf_counter()
+    eng.process_scan(scans[0], rels[0])
+    for k in range(1, len(scans), BATCH):
+        eng.process_scans_batched(scans[k:k + BATCH], rels[k:k + BATCH])
+    eng.finish()
+    eng.sync_map()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
+                 "smoke test needs a CUDA GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from icp_tpu_torch.ops.hopper import build
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+    from icp_tpu_torch.utils.config import SlamConfig
+    from icp_tpu_torch.utils.metrics import ate
+
+    dev = torch.device("cuda:0")
+    card = gpu_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    # ── 2. build ─────────────────────────────────────────────────────────
+    t0 = time.perf_counter()
+    build.load()
+    log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})")
+    for line in (build.build_log or "").splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # ── 3. kernels against their plain versions ──────────────────────────
+    log("kernel checks:")
+    err = check_kernels(dev)
+
+    # ── 4. the main path ─────────────────────────────────────────────────
+    with tempfile.TemporaryDirectory() as td:
+        gt, scans, rels, imu = load_sequence(td)
+    log(f"sequence: {len(scans)} scans, mean "
+        f"{np.mean([len(s) for s in scans]):.0f} points")
+    cfg = SlamConfig.from_dict(BENCH_CFG)
+
+    K.reset_launch_counts()
+    eng, wall1 = run_engine(cfg, imu, scans, rels, dev)
+    launches = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    log(f"main path: {len(eng.pose_trajectory)} poses, "
+        f"{eng.stats.submap_corrections} submap corrections, "
+        f"{eng.stats.rejected} rejected, {eng.stats.icp_iters} s2s ICP "
+        f"iterations, {wall1:.2f} s cold; launches {launches}")
+    assert launches["nn"] > 0 and launches["nn_min"] > 0, launches
+    traj = np.stack(eng.pose_trajectory)
+    assert np.isfinite(traj).all(), "non-finite pose"
+    assert len(traj) >= 190, f"only {len(traj)} poses"
+    lo = eng.mapper.log_odds
+    assert bool(torch.isfinite(lo).all()), "non-finite map"
+    n_cells = int((lo != 0).sum())
+    assert n_cells > 0, "empty map"
+    ate_m = ate(traj[:, :2, 2], gt, indices=eng.pose_scan_indices)
+    log(f"ATE {ate_m:.4f} m over {len(traj)} poses (bound {ATE_BOUND_M} m); "
+        f"map {lo.shape[0]}x{lo.shape[1]} cells, {n_cells} painted")
+    assert ate_m <= ATE_BOUND_M, f"ATE {ate_m:.4f} m > {ATE_BOUND_M} m"
+
+    # ── 5. warm pass and kernel timings ──────────────────────────────────
+    eng2, wall2 = run_engine(cfg, imu, scans, rels, dev)
+    traj2 = np.stack(eng2.pose_trajectory)
+    n_steps = len(scans) - 1
+    log(f"scans/s (warm pass, {n_steps} scans after the first): "
+        f"{n_steps / wall2:.2f} ({wall2:.2f} s; cold pass {n_steps / wall1:.2f}) "
+        f"on {card}; warm-pass max |pose diff| vs cold "
+        f"{float(np.abs(traj2 - traj).max()) if traj2.shape == traj.shape else 'n/a'}")
+
+    rng = np.random.default_rng(7)
+    src_cap, tgt_cap = eng._sweep_caps
+    s = torch.as_tensor(_cloud(rng, cfg.scan_capacity), device=dev)
+    g = torch.as_tensor(_cloud(rng, cfg.submap_capacity), device=dev)
+    gm = torch.as_tensor(rng.random(cfg.submap_capacity) < 0.9, device=dev)
+    rows = torch.as_tensor(_cloud(rng, 20 * src_cap), device=dev)
+    sg = torch.as_tensor(_cloud(rng, tgt_cap), device=dev)
+    sgm = torch.as_tensor(rng.random(tgt_cap) < 0.9, device=dev)
+    timings = {}
+    for name, kern, plain, args, shape in [
+            ("nn", K.nn_cuda, K.nn_plain, (s, g, gm),
+             f"{cfg.scan_capacity}x{cfg.submap_capacity}"),
+            ("nn_min", K.nn_min_cuda, K.nn_min_plain, (rows, sg, sgm),
+             f"{20 * src_cap}x{tgt_cap}")]:
+        p1 = time_ms(lambda: plain(*args))
+        k1 = time_ms(lambda: kern(*args))
+        k2 = time_ms(lambda: kern(*args))
+        p2 = time_ms(lambda: plain(*args))
+        timings[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        log(f"{name} at {shape}: kernel {1e3 * timings[name][0]:.1f} us, "
+            f"plain {1e3 * timings[name][1]:.1f} us (runs {k1 * 1e3:.1f}/"
+            f"{k2 * 1e3:.1f} vs {p1 * 1e3:.1f}/{p2 * 1e3:.1f}) on {card}")
+
+    kernels = [
+        {"name": "nn_cuda", "route": "cuda",
+         "source": "icp_tpu_torch/csrc/nn_kernel.cu",
+         "replaces": "icp_tpu/ops/pallas/nn_kernel.py:30",
+         "launches": launches["nn"], "max_abs_err": err["nn"],
+         "ms": timings["nn"][0], "plain_ms": timings["nn"][1]},
+        {"name": "nn_min_cuda", "route": "cuda",
+         "source": "icp_tpu_torch/csrc/nn_kernel.cu",
+         "replaces": "icp_tpu/ops/pallas/nn_kernel.py:64",
+         "launches": launches["nn_min"], "max_abs_err": err["nn_min"],
+         "ms": timings["nn_min"][0], "plain_ms": timings["nn_min"][1]},
+    ]
+    print(card, flush=True)       # as nvidia-smi gives it: name, power limit
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,31 @@
+"""icp_tpu_torch — the PyTorch/CUDA port of icp_tpu (2D LiDAR SLAM).
+
+Same module layout and function names as ``icp_tpu``; plain functions on
+torch tensors that create their outputs on the device of their inputs. The
+two Pallas kernels of ``icp_tpu.ops.pallas.nn_kernel`` are hand-written
+CUDA kernels for Hopper (``csrc/nn_kernel.cu``, bound in
+``ops/hopper/nn_kernel.py``); everything ``icp_tpu`` leaves to XLA is plain
+torch here.
+
+Layout:
+  ops/       masked tensor ops (NN, voxel, eig2x2, rigid solves, sweeps,
+             raytrace) + ops/hopper (CUDA kernels, their build and bindings)
+  models/    ICP, pre-alignment, occupancy grid, fused SLAM step
+  services/  lidar/IMU CSV ingestion (numpy)
+  utils/     SE(2) transforms, masking, config, synthetic data, metrics
+  engine.py  streaming SLAM engine (fused batched path)
+  cli.py     command-line entry
+
+This package never imports jax.
+"""
+import torch as _torch
+
+# Geometry needs true f32 products: the counterpart of icp_tpu's
+# jax_default_matmul_precision="highest". TF32 keeps ~10 mantissa bits,
+# which is millimetres on metre-scale clouds.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+from icp_tpu_torch.utils import se2  # noqa: E402,F401
+from icp_tpu_torch.utils.config import SlamConfig, load_config  # noqa: E402,F401

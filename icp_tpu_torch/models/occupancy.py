@@ -1,0 +1,92 @@
+"""Log-odds occupancy grid on the device (counterpart of
+icp_tpu.models.occupancy.OccupancyGrid2D, without ``replay``, which belongs
+to loop closure).
+
+Export formats (CSV / NPY probability grids) match the reference
+(utilities/mapping.py:183-187).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from icp_tpu_torch.ops.raytrace import raytrace_update
+
+
+def world_to_cells(xy, min_x, min_y, resolution):
+    """World coordinates (..., 2) -> integer grid cells (..., 2) as (ix, iy),
+    computed in f32 as icp_tpu computes them."""
+    grid_min = torch.tensor([min_x, min_y], dtype=torch.float32,
+                            device=xy.device)
+    return torch.floor((xy - grid_min) * np.float32(1.0 / resolution)
+                       ).to(torch.int64)
+
+
+class OccupancyGrid2D:
+    """2D probabilistic occupancy grid with log-odds ray tracing.
+
+    The grid covers [min_x, max_x) x [min_y, max_y) at ``resolution``
+    metres per cell; log-odds increments come from p_hit/p_miss and are
+    clamped to [log_odds_min, log_odds_max]. ``log_odds`` is a (ny, nx) f32
+    tensor on ``device`` and is updated in place.
+    """
+
+    def __init__(
+        self,
+        min_x, max_x, min_y, max_y,
+        resolution=0.1,
+        p_hit=0.7,
+        p_miss=0.4,
+        log_odds_min=-5.0,
+        log_odds_max=5.0,
+        max_ray_cells: int = 2048,
+        device="cpu",
+    ):
+        self.min_x = float(min_x)
+        self.max_x = float(max_x)
+        self.min_y = float(min_y)
+        self.max_y = float(max_y)
+        self.resolution = float(resolution)
+        self.nx = int(np.ceil((self.max_x - self.min_x) / self.resolution))
+        self.ny = int(np.ceil((self.max_y - self.min_y) / self.resolution))
+        self.l_hit = float(np.log(p_hit / (1.0 - p_hit)))
+        self.l_miss = float(np.log(p_miss / (1.0 - p_miss)))
+        self.log_odds_min = float(log_odds_min)
+        self.log_odds_max = float(log_odds_max)
+        self.max_ray_cells = int(max_ray_cells)
+        self.device = torch.device(device)
+        self.log_odds = torch.zeros((self.ny, self.nx), dtype=torch.float32,
+                                    device=self.device)
+
+    def update_scan(self, origin_xy, hit_points, mask=None):
+        """Trace rays from origin to each (valid) hit; update log-odds.
+
+        origin_xy (2,) world coords; hit_points (N, 2) world coords (array or
+        tensor); mask (N,) bool (None = all valid).
+        """
+        hits = torch.as_tensor(hit_points, dtype=torch.float32,
+                               device=self.device)
+        origin = torch.as_tensor(origin_xy, dtype=torch.float32,
+                                 device=self.device)
+        if mask is None:
+            mask = torch.ones(hits.shape[0], dtype=torch.bool, device=self.device)
+        else:
+            mask = torch.as_tensor(mask, device=self.device)
+        grid = (self.min_x, self.min_y, self.resolution)
+        raytrace_update(
+            self.log_odds, world_to_cells(origin, *grid),
+            world_to_cells(hits, *grid), mask,
+            self.l_hit, self.l_miss, self.log_odds_min, self.log_odds_max,
+            max_steps=self.max_ray_cells,
+        )
+
+    # ── probability (reference mapping.py:150-160) ──────────────────────
+    def to_probability(self):
+        return torch.sigmoid(self.log_odds).cpu().numpy()
+
+    # ── export (reference mapping.py:183-187) ────────────────────────────
+    def save_csv(self, file_path):
+        np.savetxt(file_path, self.to_probability(), delimiter=",")
+
+    def save_npy(self, file_path):
+        np.save(file_path, self.to_probability())

@@ -1,0 +1,71 @@
+"""Closed-form rigid-alignment solves (counterpart of icp_tpu.ops.rigid:
+``p2p_solve_2d``, ``solve3x3``, ``p2l_solve_2d``)."""
+from __future__ import annotations
+
+import torch
+
+from icp_tpu_torch.utils.se2 import rotmat
+
+
+def _weighted_centroids(src, dst, w):
+    wsum = torch.clamp(w.sum(), min=1e-12)
+    mu_s = (src * w[:, None]).sum(0) / wsum
+    mu_d = (dst * w[:, None]).sum(0) / wsum
+    return mu_s, mu_d
+
+
+def p2p_solve_2d(src, dst, w):
+    """Weighted 2D Procrustes: R, t minimising sum w_i ||R s_i + t - d_i||^2.
+
+    The optimal proper rotation is theta = atan2(W01 - W10, W00 + W11) for
+    the cross-covariance W = sum_i w_i s_i d_i^T (the det-fixed SVD result).
+    """
+    mu_s, mu_d = _weighted_centroids(src, dst, w)
+    s = (src - mu_s) * w[:, None]
+    d = dst - mu_d
+    W = s.T @ d
+    theta = torch.atan2(W[0, 1] - W[1, 0], W[0, 0] + W[1, 1])
+    R = rotmat(theta)
+    t = mu_d - R @ mu_s
+    return R, t
+
+
+def solve3x3(M, v, eps=1e-12):
+    """Cramer's-rule solve of M x = v for a 3x3 M.
+
+    Returns (x, ok); ok is False when M is (near-)singular, which the
+    reference treats as LinAlgError -> identity transform.
+    """
+    c0 = torch.linalg.cross(M[:, 1], M[:, 2])
+    det = (M[:, 0] * c0).sum()
+    scale = M.abs().max() ** 3 + eps
+    ok = det.abs() > 1e-9 * scale
+    safe_det = torch.where(ok, det, 1.0)
+    x0 = (v * c0).sum() / safe_det
+    x1 = (M[:, 0] * torch.linalg.cross(v, M[:, 2])).sum() / safe_det
+    x2 = (M[:, 0] * torch.linalg.cross(M[:, 1], v)).sum() / safe_det
+    return torch.stack([x0, x1, x2]), ok
+
+
+def p2l_solve_2d(src, q, nrm, w):
+    """One linearised point-to-line step.
+
+    Minimises sum w_i (n_i . (R(theta) p_i + t - q_i))^2 under the
+    small-angle approximation, then returns the exact R(theta), t.
+    src (N, 2) source points; q (N, 2) matched targets; nrm (N, 2) unit
+    normals at the matches; w (N,) weights.
+    """
+    nx, ny = nrm[:, 0], nrm[:, 1]
+    px, py = src[:, 0], src[:, 1]
+    dx, dy = px - q[:, 0], py - q[:, 1]
+    c = ny * px - nx * py
+    A = torch.stack([c, nx, ny], dim=1)                  # (N, 3)
+    b = -(nx * dx + ny * dy)                             # (N,)
+    Aw = A * w[:, None]
+    ATA = A.T @ Aw
+    ATb = Aw.T @ b
+    x, ok = solve3x3(ATA, ATb)
+    theta, t = x[0], x[1:]
+    R = rotmat(torch.where(ok, theta, 0.0))
+    t = torch.where(ok, t, torch.zeros_like(t))
+    return R, t

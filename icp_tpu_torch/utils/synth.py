@@ -1,0 +1,142 @@
+"""Synthetic lidar+IMU sequence generator (reference CSV formats).
+
+A numpy copy of icp_tpu.utils.synth, so the port and its tests make the
+same sequences without importing icp_tpu (which imports jax).
+
+The reference's benchmark dataset (data/1007lidar.csv + data/1007imu.csv)
+is gitignored upstream and not shipped (reference .gitignore), so
+benchmarks and integration tests use a faithful synthetic sequence: a 2D
+world of walls/obstacles, a smooth robot trajectory, ray-cast 360-degree
+scans with noise, emitted in the exact CSV formats the reference documents
+(reference README.md data formats; lidar: ``ts;x;y;z;...`` in the
+sensor frame, imu: ``ts;qx;qy;qz;qw``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_world(rng, kind="rooms"):
+    """World = list of wall segments ((x0,y0),(x1,y1))."""
+    segs = []
+
+    def box(x0, y0, x1, y1):
+        segs.extend([
+            ((x0, y0), (x1, y0)), ((x1, y0), (x1, y1)),
+            ((x1, y1), (x0, y1)), ((x0, y1), (x0, y0)),
+        ])
+
+    if kind == "rooms":
+        box(-12, -9, 12, 9)                     # outer walls
+        box(-5, -3, -2, 0)                      # interior box A
+        box(2.5, 1.5, 5, 4)                     # interior box B
+        segs.append(((-12, 3), (-10, 3)))       # partial wall / corridor
+        segs.append(((0, -9), (0, -7.5)))       # spur (clear of trajectory)
+        box(9.5, -6, 11, -4.5)                  # pillar near outer wall
+    elif kind == "corridor":
+        box(-20, -2, 20, 2)
+        segs.append(((-10, -2), (-10, 0.5)))
+        segs.append(((10, -0.5), (10, 2)))
+    return np.asarray(segs, np.float64)         # (S, 2, 2)
+
+
+def ray_cast(origin, angles, segs, max_range=30.0):
+    """Batched ray-segment intersection: first hit distance per angle
+    (inf when no hit). origin (2,), angles (A,), segs (S, 2, 2)."""
+    d = np.stack([np.cos(angles), np.sin(angles)], axis=1)   # (A, 2)
+    p = origin[None, :]
+    a = segs[:, 0]                                           # (S, 2)
+    b = segs[:, 1]
+    e = b - a                                                # (S, 2)
+    # solve p + t d = a + u e ; per (A, S)
+    dx, dy = d[:, 0:1], d[:, 1:2]                            # (A, 1)
+    ex, ey = e[None, :, 0], e[None, :, 1]                    # (1, S)
+    denom = dx * ey - dy * ex                                # (A, S)
+    apx = a[None, :, 0] - p[:, 0:1]
+    apy = a[None, :, 1] - p[:, 1:2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = (apx * ey - apy * ex) / denom
+        u = (apx * dy - apy * dx) / denom
+    valid = (np.abs(denom) > 1e-12) & (t > 1e-6) & (u >= 0.0) & (u <= 1.0)
+    t = np.where(valid, t, np.inf)
+    tmin = t.min(axis=1)
+    return np.minimum(tmin, np.where(np.isinf(tmin), np.inf, tmin))
+
+
+def make_trajectory(n_scans, kind="loop"):
+    """Ground-truth poses (n, 3) [x, y, yaw] — smooth loop with a return to
+    the start so loop closure triggers."""
+    if kind == "loop":
+        s = np.linspace(0, 2 * np.pi, n_scans)
+        x = 7.0 * np.cos(s - np.pi / 2)
+        y = 5.8 * np.sin(s - np.pi / 2) + 0.5
+        dx = np.gradient(x)
+        dy = np.gradient(y)
+        yaw = np.arctan2(dy, dx)
+    elif kind == "straight":
+        x = np.linspace(-8, 8, n_scans)
+        y = np.zeros(n_scans)
+        yaw = np.zeros(n_scans)
+    else:
+        raise ValueError(kind)
+    return np.stack([x, y, yaw], axis=1)
+
+
+def generate_sequence(
+    out_lidar,
+    out_imu,
+    n_scans=120,
+    n_beams=360,
+    noise=0.01,
+    z_band=(1.0, 1.4),
+    world="rooms",
+    trajectory="loop",
+    seed=0,
+    scan_period_us=100_000,
+    imu_rate_mult=4,
+):
+    """Write lidar+imu CSVs; returns ground-truth poses (n, 3).
+
+    Scans are expressed in the SENSOR frame (the reference pipeline
+    z-filters then registers sensor-frame scans, slam.py:24-27,383), with z
+    drawn inside the config z-band so the filter keeps them.
+    """
+    rng = np.random.default_rng(seed)
+    segs = make_world(rng, world)
+    poses = make_trajectory(n_scans, trajectory)
+    beam_angles = np.linspace(-np.pi, np.pi, n_beams, endpoint=False)
+
+    t0 = 1_000_000_000
+    with open(out_lidar, "w") as f:
+        for k in range(n_scans):
+            x, y, yaw = poses[k]
+            world_angles = yaw + beam_angles
+            r = ray_cast(np.array([x, y]), world_angles, segs)
+            hit = np.isfinite(r)
+            r = r + rng.normal(scale=noise, size=r.shape)
+            # sensor-frame 2D points
+            px = r * np.cos(beam_angles)
+            py = r * np.sin(beam_angles)
+            pz = rng.uniform(z_band[0], z_band[1], size=r.shape)
+            ts = t0 + k * scan_period_us
+            cols = []
+            for i in range(n_beams):
+                if hit[i]:
+                    cols.append(f"{px[i]:.4f};{py[i]:.4f};{pz[i]:.4f}")
+            f.write(f"{ts};" + ";".join(cols) + "\n")
+
+    with open(out_imu, "w") as f:
+        n_imu = n_scans * imu_rate_mult
+        for k in range(n_imu):
+            ts = t0 + int(k * scan_period_us / imu_rate_mult)
+            frac = k / imu_rate_mult
+            i0 = min(int(frac), n_scans - 1)
+            i1 = min(i0 + 1, n_scans - 1)
+            a = frac - i0
+            y0, y1 = poses[i0, 2], poses[i1, 2]
+            dy = (y1 - y0 + np.pi) % (2 * np.pi) - np.pi
+            yaw = y0 + a * dy + rng.normal(scale=0.002)
+            qz, qw = np.sin(yaw / 2), np.cos(yaw / 2)
+            f.write(f"{ts};0.0;0.0;{qz:.6f};{qw:.6f}\n")
+
+    return poses

@@ -1,0 +1,271 @@
+"""The slice as a whole: icp_tpu_torch's fused SLAM step and engine against
+icp_tpu's on the dryrun sequence (JAX on the CPU), plus the package's
+import hygiene, its guards for what is not ported yet, and its CLI.
+
+The sequence is the 10-scan x 120-beam straight run with the
+__graft_entry__.py dryrun config (loop closure off, distributed off).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+
+from icp_tpu_torch.engine import SlamEngine as TEngine, filter_and_flatten  # noqa: E402
+from icp_tpu_torch.models.slam_step import (  # noqa: E402
+    state_from_numpy, state_to_numpy)
+from icp_tpu_torch.services.imu import IMUService as TIMU  # noqa: E402
+from icp_tpu_torch.services.lidar import LidarService  # noqa: E402
+from icp_tpu_torch.utils.config import SlamConfig as TConfig  # noqa: E402
+from icp_tpu_torch.utils.synth import generate_sequence  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+DRYRUN_CFG = {
+    "icp": {"voxel_size": 0.08, "max_iterations": 12,
+            "error_reject_threshold": 5.0},
+    "features": {"method": "rotation_search", "rotation_voxel_size": 0.3,
+                 "angle_step_coarse": 6.0, "angle_step_fine": 1.0},
+    "submap": {"enabled": True, "size": 4, "voxel_size": 0.08,
+               "rotation_range": 6.0, "rotation_step": 2.0,
+               "rotation_fine_step": 1.0, "rotation_voxel_size": 0.3},
+    "loop_closure": {"enabled": False},
+    "filter": {"z_min": 0.0, "z_max": 3.0},
+    "mapping": {"resolution": 0.2, "margin": 5.0},
+    "tpu": {"scan_capacity": 128, "submap_capacity": 512,
+            "max_ray_cells": 128, "batch_scans": 4, "distributed": False},
+}
+
+
+@pytest.fixture(scope="module")
+def dryrun(tmp_path_factory):
+    td = tmp_path_factory.mktemp("dryrun")
+    lidar_f, imu_f = str(td / "lidar.csv"), str(td / "imu.csv")
+    gt = generate_sequence(lidar_f, imu_f, n_scans=10, n_beams=120,
+                           noise=0.005, trajectory="straight", seed=5)
+    scans, rels = [], []
+    for _, rel, raw in LidarService(lidar_f).scans():
+        scans.append(filter_and_flatten(raw, 0.0, 3.0))
+        rels.append(rel)
+    return gt, scans, rels, imu_f
+
+
+def _jax_engine(use_imu, imu_f):
+    from icp_tpu.engine import SlamEngine
+    from icp_tpu.services.imu import IMUService
+    from icp_tpu.utils.config import SlamConfig
+
+    return SlamEngine(SlamConfig.from_dict(DRYRUN_CFG),
+                      imu=IMUService(imu_f) if use_imu else None,
+                      verbose=False)
+
+
+def _torch_engine(use_imu, imu_f):
+    return TEngine(TConfig.from_dict(DRYRUN_CFG),
+                   imu=TIMU(imu_f) if use_imu else None, verbose=False,
+                   device="cpu")
+
+
+def _drive(eng, scans, rels, B=4):
+    eng.process_scan(scans[0], rels[0])
+    for k in range(1, len(scans), B):
+        eng.process_scans_batched(scans[k:k + B], rels[k:k + B])
+    eng.finish()
+    eng.sync_map()
+    return eng
+
+
+@pytest.mark.parametrize("use_imu", [True, False], ids=["imu", "no_imu"])
+def test_slice_matches_icp_tpu(dryrun, use_imu):
+    """Both engines on the dryrun sequence: the same accepted and
+    sub_applied flags scan by scan, positions within 5 mm, yaws within
+    1e-3 rad, the same map within 1e-3 log-odds."""
+    gt, scans, rels, imu_f = dryrun
+    et = _drive(_torch_engine(use_imu, imu_f), scans, rels)
+    ej = _drive(_jax_engine(use_imu, imu_f), scans, rels)
+    for f in ("scans", "rejected", "submap_corrections", "icp_iters",
+              "sweep_dropped_voxels", "truncated_scans"):
+        assert getattr(et.stats, f) == getattr(ej.stats, f), f
+    np.testing.assert_array_equal(et.pose_scan_indices, ej.pose_scan_indices)
+    pt, pj = np.stack(et.pose_trajectory), np.stack(ej.pose_trajectory)
+    assert len(pt) >= 7
+    np.testing.assert_allclose(pt[:, :2, 2], pj[:, :2, 2], atol=5e-3)
+    yt = np.arctan2(pt[:, 1, 0], pt[:, 0, 0])
+    yj = np.arctan2(pj[:, 1, 0], pj[:, 0, 0])
+    np.testing.assert_allclose(yt, yj, atol=1e-3)
+    np.testing.assert_allclose(et.mapper.log_odds.numpy(),
+                               np.asarray(ej.mapper.log_odds), atol=1e-3)
+    assert et.pose_graph.n_nodes == ej.pose_graph.n_nodes
+    assert et.pose_graph.n_edges == ej.pose_graph.n_edges
+
+
+def test_per_scan_path_and_warmup_match_icp_tpu(dryrun):
+    """process_scan one scan at a time (batch_scans 1: the map is painted
+    per scan), after a warmup() on padding scans: the same flags and
+    positions within 5 mm as icp_tpu, and the same map within 1e-3."""
+    import copy
+
+    from icp_tpu.engine import SlamEngine
+    from icp_tpu.services.imu import IMUService
+    from icp_tpu.utils.config import SlamConfig
+
+    gt, scans, rels, imu_f = dryrun
+    d = copy.deepcopy(DRYRUN_CFG)
+    d["tpu"]["batch_scans"] = 1
+    et = TEngine(TConfig.from_dict(d), imu=TIMU(imu_f), verbose=False,
+                 device="cpu")
+    ej = SlamEngine(SlamConfig.from_dict(d), imu=IMUService(imu_f),
+                    verbose=False)
+    for eng in (et, ej):
+        eng.process_scan(scans[0], rels[0])
+        eng.warmup()
+        flags = [eng.process_scan(p, r) for p, r in zip(scans[1:], rels[1:])]
+        eng.finish()
+        eng.sync_map()
+        eng.flags = flags
+    assert et.flags == ej.flags
+    assert et.stats.submap_corrections == ej.stats.submap_corrections
+    pt, pj = np.stack(et.pose_trajectory), np.stack(ej.pose_trajectory)
+    np.testing.assert_allclose(pt[:, :2, 2], pj[:, :2, 2], atol=5e-3)
+    np.testing.assert_allclose(et.mapper.log_odds.numpy(),
+                               np.asarray(ej.mapper.log_odds), atol=1e-3)
+
+
+def test_step_from_shared_state_matches_icp_tpu(dryrun):
+    """Hand icp_tpu's mid-run state to both packages' fused step (through
+    state_from_numpy) and run one scan: the same flags and iterations, the
+    pose within 1e-4, the submap ring within 1e-4 and the grid within
+    1e-5; state_to_numpy round-trips."""
+    gt, scans, rels, imu_f = dryrun
+    ej = _drive(_jax_engine(True, imu_f), scans[:5], rels[:5])
+    et = _torch_engine(True, imu_f)
+    et.process_scan(scans[0], rels[0])          # builds the same step
+    shared = {k: np.asarray(v) for k, v in ej._state._asdict().items()
+              if k in ("prev_pts", "prev_mask", "global_pose", "ring_pts",
+                       "ring_mask", "ring_idx", "log_odds")}
+    st = state_from_numpy(shared, "cpu")
+    back = state_to_numpy(st)
+    for k, v in shared.items():
+        np.testing.assert_array_equal(back[k], v)
+
+    cur = np.zeros((128, 2), np.float32)
+    n = min(len(scans[5]), 128)
+    cur[:n], cur[n:] = scans[5][:n], scans[5][0]
+    msk = np.arange(128) < n
+    delta = float(et.imu.delta_yaw(rels[4], rels[5]))
+    yaw = float(et.imu.yaw_at(rels[5]) - et.imu_yaw_offset)
+    st_new, ot = et._step_fn(st, torch.as_tensor(cur), torch.as_tensor(msk),
+                             torch.tensor(delta), torch.tensor(yaw))
+    import jax.numpy as jnp
+    sj_new, oj = ej._step_fn(ej._state, jnp.asarray(cur), jnp.asarray(msk),
+                             jnp.float32(delta), jnp.float32(yaw))
+    for f in ("accepted", "sub_applied", "iters", "sub_n", "sweep_drop"):
+        assert int(getattr(ot, f)) == int(getattr(oj, f)), f
+    np.testing.assert_allclose(ot.pose.numpy(), np.asarray(oj.pose), atol=1e-4)
+    np.testing.assert_allclose(float(ot.error), float(oj.error), rtol=1e-3,
+                               atol=1e-7)
+    got = state_to_numpy(st_new)
+    np.testing.assert_allclose(got["ring_pts"], np.asarray(sj_new.ring_pts),
+                               atol=1e-4)
+    np.testing.assert_array_equal(got["ring_mask"], np.asarray(sj_new.ring_mask))
+    assert int(got["ring_idx"]) == int(sj_new.ring_idx)
+    np.testing.assert_allclose(got["log_odds"], np.asarray(sj_new.log_odds),
+                               atol=1e-5)
+
+
+def test_port_imports_no_jax():
+    """Importing every module of icp_tpu_torch, and chip_smoke.py, leaves
+    jax, icp_tpu and yaml out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import icp_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(icp_tpu_torch.__path__, 'icp_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icp_tpu', 'yaml')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
+        "assert torch.backends.cudnn.allow_tf32 is False\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_engine_refuses_what_is_not_ported(dryrun):
+    """Loop closure, the non-fused path, a mesh and the features prealign
+    raise NotImplementedError; device='cuda' without CUDA raises."""
+    import copy
+
+    from icp_tpu_torch.models.slam_step import make_slam_step
+
+    for section, key, value in [("loop_closure", "enabled", True),
+                                ("tpu", "fused", False),
+                                ("tpu", "distributed", True)]:
+        d = copy.deepcopy(DRYRUN_CFG)
+        d[section][key] = value
+        with pytest.raises(NotImplementedError):
+            TEngine(TConfig.from_dict(d), device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_slam_step(use_imu=False, prealign="features", icp_method="point_to_line",
+                       icp_voxel=0.1, icp_max_iterations=5, icp_normal_k=5,
+                       icp_error_threshold=1e-7, error_reject_threshold=0.5,
+                       rotation_voxel_size=0.3, angle_step_coarse=2.0,
+                       angle_step_fine=0.2, submap_enabled=False,
+                       submap_voxel=0.1, submap_capacity=64, sub_rot_range=5.0,
+                       sub_rot_step=1.0, sub_rot_fine=0.2, sub_rot_voxel=0.3,
+                       sub_corr_dist=0.5, imu_narrow=3.0, grid_min_x=0.0,
+                       grid_min_y=0.0, grid_resolution=0.1, l_hit=0.8,
+                       l_miss=-0.4, log_odds_min=-5.0, log_odds_max=5.0,
+                       max_ray_cells=64)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            TEngine(TConfig.from_dict(DRYRUN_CFG))
+
+
+def test_cli_runs_synthetic_sequence(tmp_path):
+    """python -m icp_tpu_torch.cli --synth on a small YAML config with loop
+    closure on: runs without it (with a notice) and writes the map and
+    the trajectory."""
+    data = tmp_path / "lidar.csv"
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(
+        f'data_file: "{data}"\n'
+        f'imu: {{enabled: true, file: "{tmp_path / "imu.csv"}"}}\n'
+        "icp: {voxel_size: 0.08, max_iterations: 12, error_reject_threshold: 5.0}\n"
+        "submap: {enabled: true, size: 4, voxel_size: 0.08, rotation_voxel_size: 0.3}\n"
+        "loop_closure: {enabled: true}\n"
+        "filter: {z_min: 0.0, z_max: 3.0}\n"
+        "mapping: {resolution: 0.2, margin: 5.0}\n"
+        "service: {loop: false}\n"
+        f'output: {{csv: "{tmp_path / "map.csv"}", npy: "{tmp_path / "map.npy"}"}}\n'
+        "tpu: {scan_capacity: 128, submap_capacity: 512, max_ray_cells: 128, "
+        "batch_scans: 4}\n")
+    traj = tmp_path / "traj.npy"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-m", "icp_tpu_torch.cli", "--config", str(cfg),
+         "--synth", "--synth-scans", "8", "--synth-beams", "120",
+         "--device", "cpu", "--quiet", "--save-traj", str(traj)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "loop closure is not ported yet" in out.stdout
+    grid = np.load(tmp_path / "map.npy")
+    assert grid.ndim == 2 and np.isfinite(grid).all() and (grid != 0.5).any()
+    assert np.load(traj).shape[1:] == (3, 3)
+    assert (tmp_path / "map.csv").exists()
+
+
+def test_jax_stays_on_cpu():
+    """The comparisons above ran icp_tpu on the CPU backend."""
+    assert jax.default_backend() == "cpu"
