@@ -14,7 +14,9 @@ Phases (any failed check ends the run with a non-zero exit code):
      the kernels' launch counters reset just before; check both counters
      are > 0, the poses and map are finite, and ATE <= 0.050 m;
   5. time a second, warm pass (scans/s) and each kernel against its plain
-     version (CUDA events) at the main path's shapes.
+     version at the main path's shapes (nn_cuda at scan x scan and scan x
+     submap capacity), by CUDA events around back-to-back calls and by
+     CUDA-graph replays (device time only).
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Imports neither jax nor icp_tpu nor yaml.
 """
@@ -32,7 +34,7 @@ import torch
 
 N_SCANS, N_BEAMS, BATCH = 200, 720, 16
 ATE_BOUND_M = 0.050       # icp_tpu scores 0.0416 m on this sequence
-RTOL, ATOL = 1e-4, 1e-5   # kernel vs plain d2 (indices must be equal)
+RTOL, ATOL = 1e-4, 1e-5   # nn_min_cuda vs plain (nn_cuda must be bit-equal)
 
 # bench.py's configuration (BASELINE config #3: IMU + submap, no loop closure)
 BENCH_CFG = {
@@ -68,7 +70,9 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, iters=100):
-    """Mean device time of fn() in ms over ``iters`` launches (CUDA events)."""
+    """Mean ms per call of fn() over ``iters`` back-to-back calls between
+    two CUDA events: where the host launches slower than the device runs,
+    the host's launch gaps count."""
     for _ in range(5):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -82,8 +86,80 @@ def time_ms(fn, iters=100):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls=20, replays=10):
+    """Device-only ms per call of fn(): ``calls`` calls captured in one
+    CUDA graph and replayed ``replays`` times between two CUDA events, so
+    the host's launch gaps do not count (the device's gaps between the
+    graph's kernels do)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def _cloud(rng, n, lo=-20.0, hi=20.0):
     return rng.uniform(lo, hi, (n, 2)).astype(np.float32)
+
+
+def nn_cases(rng):
+    """(label, src, tgt, mask) cases for nn_cuda: the main path's shapes,
+    ties that straddle the kernel's target slices, and the edges of its
+    launch geometry (M below one slice, M = 0, N = 1, every cluster size,
+    a target that is not 16-byte aligned)."""
+    base = rng.uniform(-5, 5, (512, 2)).astype(np.float32)
+    cases = [
+        # the tie case of bench.py (duplicate targets), random data at both
+        # main-path shapes, and a ragged shape
+        ("bench tie", rng.uniform(-5, 5, (768, 2)).astype(np.float32),
+         np.concatenate([base, base[:256]]), np.arange(768) < 700),
+        ("random", _cloud(rng, 768), _cloud(rng, 4096), rng.random(4096) < 0.9),
+        ("ragged", _cloud(rng, 700), _cloud(rng, 4000), rng.random(4000) < 0.9),
+        ("random", _cloud(rng, 768), _cloud(rng, 768), rng.random(768) < 0.9),
+    ]
+    # the target set concatenated with a copy of itself: every row's
+    # nearest target has a twin in a later slice, and the lower index wins
+    for half in (2048, 384, 1000):
+        tgt = _cloud(rng, half)
+        msk = rng.random(half) < 0.9
+        src = _cloud(rng, 768)
+        src[:32] = tgt[:32]                         # zero distances
+        cases.append(("self-concat", src, np.concatenate([tgt, tgt]),
+                      np.concatenate([msk, msk])))
+    # all-equal targets: every valid target ties
+    for m, frac in ((4096, 0.9), (768, 1.0)):
+        cases.append(("all-equal", _cloud(rng, 768),
+                      np.tile(np.float32([[1.5, -0.5]]), (m, 1)),
+                      rng.random(m) < frac))
+    cases += [
+        ("M < slice", _cloud(rng, 768), _cloud(rng, 5), np.ones(5, bool)),
+        ("M = 0", _cloud(rng, 768), np.zeros((0, 2), np.float32),
+         np.zeros(0, bool)),
+        ("N = 1", _cloud(rng, 1), _cloud(rng, 4096), rng.random(4096) < 0.9),
+        ("misaligned", _cloud(rng, 768), _cloud(rng, 4095),
+         rng.random(4095) < 0.9),
+    ]
+    # 2..7 chunks of 64 targets: clusters of 2..7 blocks, last chunk ragged
+    for c in range(2, 8):
+        m = 64 * c - 13
+        cases.append((f"cluster {c}", _cloud(rng, 100), _cloud(rng, m),
+                      rng.random(m) < 0.9))
+    return cases
 
 
 def check_kernels(dev) -> dict:
@@ -98,23 +174,23 @@ def check_kernels(dev) -> dict:
     rng = np.random.default_rng(3)
     err = {"nn": 0.0, "nn_min": 0.0}
 
-    # nn_cuda: the tie case of bench.py (duplicate targets), random data at
-    # the submap-ICP shape, and a ragged shape
-    base = rng.uniform(-5, 5, (512, 2)).astype(np.float32)
-    cases = [(rng.uniform(-5, 5, (768, 2)).astype(np.float32),
-              np.concatenate([base, base[:256]]), np.arange(768) < 700),
-             (_cloud(rng, 768), _cloud(rng, 4096), rng.random(4096) < 0.9),
-             (_cloud(rng, 700), _cloud(rng, 4000), rng.random(4000) < 0.9)]
-    for src, tgt, msk in cases:
+    # nn_cuda: indices equal and d2 bit-equal on every case
+    for label, src, tgt, msk in nn_cases(rng):
         s, g, m = t(src), t(tgt), t(msk)
+        if label == "misaligned":
+            # a contiguous view one row into its storage: not 16-byte
+            # aligned, so the kernel stages with scalar loads
+            g = t(np.concatenate([tgt[:1], tgt]))[1:]
+            assert g.data_ptr() % 16 == 8 and g.is_contiguous()
         d_k, i_k = K.nn_cuda(s, g, m)
         d_p, i_p = K.nn_plain(s, g, m)
         torch.cuda.synchronize()
-        assert torch.equal(i_k, i_p), f"nn_cuda indices != plain at {src.shape}x{tgt.shape}"
-        assert torch.allclose(d_k, d_p, rtol=RTOL, atol=ATOL), "nn_cuda d2 != plain"
-        err["nn"] = max(err["nn"], float((d_k - d_p).abs().max()))
-        log(f"  nn_cuda {src.shape[0]}x{tgt.shape[0]}: indices equal, "
-            f"max |d2 err| {float((d_k - d_p).abs().max()):.3g}")
+        shape = f"{src.shape[0]}x{tgt.shape[0]}"
+        assert torch.equal(i_k, i_p), f"nn_cuda indices != plain: {label} {shape}"
+        assert torch.equal(d_k, d_p), f"nn_cuda d2 not bit-equal to plain: {label} {shape}"
+        e = float((d_k - d_p).abs().max()) if d_k.numel() else 0.0
+        err["nn"] = max(err["nn"], e)
+        log(f"  nn_cuda {label} {shape}: indices equal, d2 bit-equal")
 
     # nn_min_cuda: the fine sweep's 20 x 768 rows, ragged rows, all-masked
     for rows, tgt, msk in [
@@ -151,6 +227,45 @@ def check_kernels(dev) -> dict:
         f"|dR| {float((b.R - a.R).abs().max()):.3g}, "
         f"|dt| {float((b.t - a.t).abs().max()):.3g}")
     return err
+
+
+def time_kernels(dev, scan_cap, submap_cap, sweep_src_cap, sweep_tgt_cap,
+                 card) -> dict:
+    """Each kernel against its plain version at the main path's shapes, in
+    turns (plain, kernel, kernel, plain) by both measures: CUDA events
+    around 100 back-to-back calls (the host's launch gaps count) and
+    CUDA-graph replays (device only). Returns {key: {shape: figures}}."""
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    s = t(_cloud(rng, scan_cap))
+    runs = [("nn", K.nn_cuda, K.nn_plain, (s, t(_cloud(rng, m)),
+                                           t(rng.random(m) < 0.9)),
+             f"{scan_cap}x{m}") for m in (scan_cap, submap_cap)]
+    runs.append(("nn_min", K.nn_min_cuda, K.nn_min_plain,
+                 (t(_cloud(rng, 20 * sweep_src_cap)), t(_cloud(rng, sweep_tgt_cap)),
+                  t(rng.random(sweep_tgt_cap) < 0.9)),
+                 f"{20 * sweep_src_cap}x{sweep_tgt_cap}"))
+    timings = {}
+    for key, kern, plain, args, shape in runs:
+        fig = {}
+        for measure, timer in (("", time_ms), ("device_", graph_ms)):
+            p1 = timer(lambda: plain(*args))
+            k1 = timer(lambda: kern(*args))
+            k2 = timer(lambda: kern(*args))
+            p2 = timer(lambda: plain(*args))
+            fig[f"{measure}ms"] = (k1 + k2) / 2
+            fig[f"plain_{measure}ms"] = (p1 + p2) / 2
+            log(f"{key} at {shape}, {'device only (CUDA graph)' if measure else 'CUDA events'}: "
+                f"kernel {1e3 * fig[f'{measure}ms']:.2f} us, plain "
+                f"{1e3 * fig[f'plain_{measure}ms']:.2f} us (runs {k1 * 1e3:.2f}/"
+                f"{k2 * 1e3:.2f} vs {p1 * 1e3:.2f}/{p2 * 1e3:.2f}) on {card}")
+        timings.setdefault(key, {})[shape] = fig
+    return timings
 
 
 def load_sequence(td):
@@ -252,41 +367,20 @@ def main():
         f"on {card}; warm-pass max |pose diff| vs cold "
         f"{float(np.abs(traj2 - traj).max()) if traj2.shape == traj.shape else 'n/a'}")
 
-    rng = np.random.default_rng(7)
-    src_cap, tgt_cap = eng._sweep_caps
-    s = torch.as_tensor(_cloud(rng, cfg.scan_capacity), device=dev)
-    g = torch.as_tensor(_cloud(rng, cfg.submap_capacity), device=dev)
-    gm = torch.as_tensor(rng.random(cfg.submap_capacity) < 0.9, device=dev)
-    rows = torch.as_tensor(_cloud(rng, 20 * src_cap), device=dev)
-    sg = torch.as_tensor(_cloud(rng, tgt_cap), device=dev)
-    sgm = torch.as_tensor(rng.random(tgt_cap) < 0.9, device=dev)
-    timings = {}
-    for name, kern, plain, args, shape in [
-            ("nn", K.nn_cuda, K.nn_plain, (s, g, gm),
-             f"{cfg.scan_capacity}x{cfg.submap_capacity}"),
-            ("nn_min", K.nn_min_cuda, K.nn_min_plain, (rows, sg, sgm),
-             f"{20 * src_cap}x{tgt_cap}")]:
-        p1 = time_ms(lambda: plain(*args))
-        k1 = time_ms(lambda: kern(*args))
-        k2 = time_ms(lambda: kern(*args))
-        p2 = time_ms(lambda: plain(*args))
-        timings[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"{name} at {shape}: kernel {1e3 * timings[name][0]:.1f} us, "
-            f"plain {1e3 * timings[name][1]:.1f} us (runs {k1 * 1e3:.1f}/"
-            f"{k2 * 1e3:.1f} vs {p1 * 1e3:.1f}/{p2 * 1e3:.1f}) on {card}")
-
-    kernels = [
-        {"name": "nn_cuda", "route": "cuda",
-         "source": "icp_tpu_torch/csrc/nn_kernel.cu",
-         "replaces": "icp_tpu/ops/pallas/nn_kernel.py:30",
-         "launches": launches["nn"], "max_abs_err": err["nn"],
-         "ms": timings["nn"][0], "plain_ms": timings["nn"][1]},
-        {"name": "nn_min_cuda", "route": "cuda",
-         "source": "icp_tpu_torch/csrc/nn_kernel.cu",
-         "replaces": "icp_tpu/ops/pallas/nn_kernel.py:64",
-         "launches": launches["nn_min"], "max_abs_err": err["nn_min"],
-         "ms": timings["nn_min"][0], "plain_ms": timings["nn_min"][1]},
-    ]
+    timings = time_kernels(dev, cfg.scan_capacity, cfg.submap_capacity,
+                           *eng._sweep_caps, card)
+    kernels = []
+    for name, key, line in (("nn_cuda", "nn", 30), ("nn_min_cuda", "nn_min", 64)):
+        shapes = timings[key]
+        top = list(shapes.values())[-1]        # nn: the submap-ICP shape
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "icp_tpu_torch/csrc/nn_kernel.cu",
+            "replaces": f"icp_tpu/ops/pallas/nn_kernel.py:{line}",
+            "launches": launches[key], "max_abs_err": err[key],
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "device_ms": top["device_ms"],
+            "plain_device_ms": top["plain_device_ms"], "shapes": shapes})
     print(card, flush=True)       # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

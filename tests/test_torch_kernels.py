@@ -9,6 +9,8 @@ shapes. JAX is imported inside the tests that use it, so the card (which
 has no JAX) runs the `gpu` tests with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -107,6 +109,49 @@ def test_nn_min_plain_matches_pallas_kernel(n, m, m_valid):
         assert (d_t == np.float32(1e30)).all()
 
 
+@functools.lru_cache(maxsize=None)
+def _split_case(case):
+    """A tie-heavy nn case, its nn_plain answer, and icp_tpu's Pallas
+    indices for it."""
+    import jax.numpy as jnp
+
+    src, tgt, msk = _nn_case(*case)
+    d, i = K.nn_plain(torch.as_tensor(src), torch.as_tensor(tgt),
+                      torch.as_tensor(msk))
+    _, i_j = _pallas_nn_interpret(jnp.asarray(src), jnp.asarray(tgt),
+                                  jnp.asarray(msk))
+    return src, tgt, msk, d, i, i_j
+
+
+@pytest.mark.parametrize("n_slices", [1, 3, 8, 13])
+@pytest.mark.parametrize("case", [
+    (3, 256, 768, 256, 700),      # duplicated targets, zero distances
+    (4, 128, 256, 128, 0),        # no valid target: (BIG, 0)
+], ids=["ties", "no-valid"])
+def test_nn_split_and_reduce_is_exact(case, n_slices):
+    """The algebra nn_cuda's cluster split rests on: nn_plain on each
+    slice of the targets, indices shifted by the slice's offset, the
+    partial (d2, idx) pairs combined by lexicographic min in a shuffled
+    order, equals nn_plain on the whole set bit for bit, and its indices
+    equal those of icp_tpu's Pallas kernel (interpret mode)."""
+    src, tgt, msk, d_all, i_all, i_pallas = _split_case(case)
+    s, g, m = (torch.as_tensor(a) for a in (src, tgt, msk))
+    parts = []
+    for sl in np.array_split(np.arange(g.shape[0]), n_slices):
+        lo, hi = int(sl[0]), int(sl[-1]) + 1
+        d, i = K.nn_plain(s, g[lo:hi], m[lo:hi])
+        parts.append((d, i + lo))
+    order = np.random.default_rng(n_slices).permutation(n_slices)
+    d, i = parts[order[0]]
+    for k in order[1:]:
+        pd, pi = parts[k]
+        take = (pd < d) | ((pd == d) & (pi < i))
+        d, i = torch.where(take, pd, d), torch.where(take, pi, i)
+    assert i.dtype == torch.int32
+    assert torch.equal(d, d_all) and torch.equal(i, i_all)
+    np.testing.assert_array_equal(i.numpy(), i_pallas)
+
+
 def test_wrappers_take_plain_version_on_cpu_without_counting():
     """On CPU tensors nn_cuda/nn_min_cuda return exactly the plain result
     and count no kernel launch."""
@@ -164,12 +209,40 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
+def _card_case(name):
+    """nn_cuda cases on the card: the main path's two shapes, a ragged
+    shape, ties across the kernel's target slices (the target set
+    concatenated with a copy of itself; all targets equal), M below one
+    64-target slice, M = 0 and N = 1."""
+    rng = np.random.default_rng(6)
+    if "x" in name:
+        n, m = map(int, name.split("x"))
+        return _nn_case(6, n, m, 256, m - 50)
+    if name == "self-concat":
+        src, tgt, msk = _nn_case(6, 768, 2048, 0, 1900)
+        return src, np.concatenate([tgt, tgt]), np.concatenate([msk, msk])
+    src = rng.uniform(-5, 5, (768, 2)).astype(np.float32)
+    if name == "all-equal":
+        return (src, np.tile(np.float32([[1.5, -0.5]]), (4096, 1)),
+                rng.random(4096) < 0.9)
+    if name == "M=5":
+        return src, src[:5].copy(), np.ones(5, bool)
+    if name == "M=0":
+        return src, np.zeros((0, 2), np.float32), np.zeros(0, bool)
+    assert name == "N=1"
+    _, tgt, msk = _nn_case(6, 16, 4096, 256, 4000)
+    return src[:1], tgt, msk
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m", [(768, 4096), (700, 4000)])
-def test_nn_cuda_matches_plain_on_card(cuda_device, n, m):
+@pytest.mark.parametrize("case", ["768x4096", "700x4000", "768x768",
+                                  "self-concat", "all-equal", "M=5", "M=0",
+                                  "N=1"])
+def test_nn_cuda_matches_plain_on_card(cuda_device, case):
     """The CUDA kernel against its plain version on the card: indices
-    equal, d2 equal (both round each operation on its own)."""
-    src, tgt, msk = _nn_case(6, n, m, 256, m - 50)
+    equal and d2 bit-equal (both round each operation on its own), in one
+    launch."""
+    src, tgt, msk = _card_case(case)
     args = tuple(torch.as_tensor(a, device=cuda_device) for a in (src, tgt, msk))
     before = K.nn_launches
     d_k, i_k = K.nn_cuda(*args)
@@ -177,7 +250,7 @@ def test_nn_cuda_matches_plain_on_card(cuda_device, n, m):
     torch.cuda.synchronize()
     assert K.nn_launches == before + 1
     assert torch.equal(i_k, i_p)
-    torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=1e-5)
+    assert torch.equal(d_k, d_p)
 
 
 @pytest.mark.gpu
