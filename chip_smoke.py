@@ -7,16 +7,24 @@ Phases (any failed check ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from icp_tpu_torch/csrc with nvcc;
   3. hold each kernel against its plain torch version on the card at the
-     main path's shapes (plus ragged and tie cases), and icp_core with the
-     kernel against icp_core with the plain query;
+     shapes of both paths (plus ragged and tie cases), and icp_core with
+     the kernel against icp_core with the plain query;
   4. drive the main path: the 200-scan x 720-beam bench sequence through
      SlamEngine (first scan, then batches of 16, finish, sync_map) with
      the kernels' launch counters reset just before; check both counters
      are > 0, the poses and map are finite, and ATE <= 0.050 m;
   5. time a second, warm pass (scans/s) and each kernel against its plain
-     version at the main path's shapes (nn_cuda at scan x scan and scan x
-     submap capacity), by CUDA events around back-to-back calls and by
-     CUDA-graph replays (device time only).
+     version at the paths' shapes (nn_cuda at scan x scan and scan x
+     submap capacity, nn_min_cuda at the loop-closure coarse sweep and the
+     submap fine sweep), by CUDA events around back-to-back calls and by
+     CUDA-graph replays (device time only);
+  6. drive the loop-closure path: the same sequence with bench_suite's
+     loop-closure section (first scan, warmup, batches of 16 with rollback
+     at accepted closures, finish, sync_map), counters reset just before;
+     check >= 1 closure, ATE <= 0.030 m and below phase 4's, finite poses
+     and map, and more nn_min_cuda launches than phase 4;
+  7. time PoseGraph2D.optimize through the dense and the PCG solve at
+     1024 and 4096 nodes (printed only).
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Imports neither jax nor icp_tpu nor yaml.
 """
@@ -34,6 +42,7 @@ import torch
 
 N_SCANS, N_BEAMS, BATCH = 200, 720, 16
 ATE_BOUND_M = 0.050       # icp_tpu scores 0.0416 m on this sequence
+LC_ATE_BOUND_M = 0.030    # icp_tpu scores 0.0186 m with loop closure
 RTOL, ATOL = 1e-4, 1e-5   # nn_min_cuda vs plain (nn_cuda must be bit-equal)
 
 # bench.py's configuration (BASELINE config #3: IMU + submap, no loop closure)
@@ -56,6 +65,14 @@ BENCH_CFG = {
     "tpu": {"scan_capacity": 768, "submap_capacity": 4096,
             "max_ray_cells": 448, "batch_scans": BATCH, "nn_impl": "auto"},
 }
+# benchmarks/bench_suite.py's loop-closure section (its "lc" row)
+LC_SECTION = {"enabled": True, "distance_threshold": 3.0, "min_interval": 80,
+              "min_cumulative_travel": 6.0, "max_candidates": 5,
+              "error_threshold": 0.08, "optimization_iterations": 30,
+              "information_scale": 5.0, "cooldown": 30}
+# LC verification's rotation_search on scan-capacity clouds: 360 / 1.5 =
+# 240 coarse angles and 30 fine angles of 768 rows, against 768 targets
+LC_SWEEP_ROWS = (240 * 768, 30 * 768)
 
 
 def log(*a):
@@ -192,8 +209,11 @@ def check_kernels(dev) -> dict:
         err["nn"] = max(err["nn"], e)
         log(f"  nn_cuda {label} {shape}: indices equal, d2 bit-equal")
 
-    # nn_min_cuda: the fine sweep's 20 x 768 rows, ragged rows, all-masked
+    # nn_min_cuda: the loop-closure sweeps, the fine sweep's 20 x 768 rows,
+    # ragged rows, all-masked
     for rows, tgt, msk in [
+            *[(_cloud(rng, r), _cloud(rng, 768), rng.random(768) < 0.9)
+              for r in LC_SWEEP_ROWS],
             (_cloud(rng, 20 * 768), _cloud(rng, 4096), rng.random(4096) < 0.9),
             (_cloud(rng, 13 * 700 + 3), _cloud(rng, 4000), rng.random(4000) < 0.9),
             (_cloud(rng, 300), _cloud(rng, 1000), np.zeros(1000, bool))]:
@@ -247,6 +267,10 @@ def time_kernels(dev, scan_cap, submap_cap, sweep_src_cap, sweep_tgt_cap,
                                            t(rng.random(m) < 0.9)),
              f"{scan_cap}x{m}") for m in (scan_cap, submap_cap)]
     runs.append(("nn_min", K.nn_min_cuda, K.nn_min_plain,
+                 (t(_cloud(rng, LC_SWEEP_ROWS[0])), t(_cloud(rng, scan_cap)),
+                  t(rng.random(scan_cap) < 0.9)),
+                 f"{LC_SWEEP_ROWS[0]}x{scan_cap}"))
+    runs.append(("nn_min", K.nn_min_cuda, K.nn_min_plain,
                  (t(_cloud(rng, 20 * sweep_src_cap)), t(_cloud(rng, sweep_tgt_cap)),
                   t(rng.random(sweep_tgt_cap) < 0.9)),
                  f"{20 * sweep_src_cap}x{sweep_tgt_cap}"))
@@ -287,19 +311,73 @@ def load_sequence(td):
     return gt, scans, rels, IMUService(imu_csv)
 
 
-def run_engine(cfg, imu, scans, rels, dev):
-    """The main path as a user drives it; returns (engine, seconds)."""
+def run_engine(cfg, imu, scans, rels, dev, warmup=False):
+    """A path as a user drives it; returns (engine, seconds)."""
     from icp_tpu_torch.engine import SlamEngine
 
     eng = SlamEngine(cfg, imu=imu, verbose=False, device=dev)
     t0 = time.perf_counter()
     eng.process_scan(scans[0], rels[0])
+    if warmup:
+        eng.warmup()
     for k in range(1, len(scans), BATCH):
         eng.process_scans_batched(scans[k:k + BATCH], rels[k:k + BATCH])
     eng.finish()
     eng.sync_map()
     torch.cuda.synchronize()
     return eng, time.perf_counter() - t0
+
+
+def _chain_with_closures(pg, n):
+    """tests/test_pose_graph.py's noisy circular chain (radius 5 m) with
+    its three closures scaled to n nodes."""
+    rng = np.random.default_rng(1)
+    ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    true = np.stack([np.cos(ang) * 5, np.sin(ang) * 5,
+                     (ang + np.pi / 2 + np.pi) % (2 * np.pi) - np.pi], 1)
+
+    def rel(a, b):
+        ca, sa = np.cos(a[2]), np.sin(a[2])
+        d = b[:2] - a[:2]
+        return np.array([ca * d[0] + sa * d[1], -sa * d[0] + ca * d[1],
+                         (b[2] - a[2] + np.pi) % (2 * np.pi) - np.pi])
+    for k in range(n):
+        noise = rng.normal(scale=0.05, size=3) * [1, 1, 0.2] if k else 0
+        pg.add_node(true[k] + noise)
+    for k in range(1, n):
+        pg.add_edge(k - 1, k, rel(true[k - 1], true[k]), np.eye(3))
+    for i, j in ((0, n // 2), (10 * n // 96, 60 * n // 96),
+                 (20 * n // 96, 80 * n // 96)):
+        pg.add_edge(i, j, rel(true[i], true[j]), np.eye(3) * 50.0)
+    return pg
+
+
+def time_pose_graph(dev, card) -> dict:
+    """Phase 7: one PoseGraph2D.optimize (30 iterations) per solve and
+    size, forced through the dense or the PCG route by the node threshold.
+    Printed only: the data for the 2000-node switch."""
+    from icp_tpu_torch.models.pose_graph import PoseGraph2D
+
+    _chain_with_closures(PoseGraph2D(dev), 256).optimize(n_iterations=2)
+    out = {}
+    for n in (1024, 4096):
+        nodes = {}
+        for strategy in ("dense", "cg"):
+            pg = _chain_with_closures(PoseGraph2D(dev), n)
+            pg._cg_node_threshold = 10**9 if strategy == "dense" else 2
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pg.optimize(n_iterations=30)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            assert pg.last_strategy == strategy, pg.last_strategy
+            nodes[strategy] = np.stack(pg.nodes)
+            out[f"{strategy}_{n}"] = ms
+            log(f"pose graph {n} nodes, {strategy}: optimize {ms:.1f} ms "
+                f"(30 iterations max), chi2 {pg.total_error():.4g} on {card}")
+        gap = float(np.abs(nodes["dense"][:, :2] - nodes["cg"][:, :2]).max())
+        log(f"pose graph {n} nodes: max |dense - cg| position {gap:.3g} m")
+    return out
 
 
 def main():
@@ -369,15 +447,51 @@ def main():
 
     timings = time_kernels(dev, cfg.scan_capacity, cfg.submap_capacity,
                            *eng._sweep_caps, card)
+
+    # ── 6. the loop-closure path ─────────────────────────────────────────
+    lc_dict = dict(BENCH_CFG, loop_closure=LC_SECTION)
+    lc_cfg = SlamConfig.from_dict(lc_dict)
+    lc_cfg.num_scans = len(scans)      # as bench_suite sets it
+    K.reset_launch_counts()
+    eng_lc, wall_lc = run_engine(lc_cfg, imu, scans, rels, dev, warmup=True)
+    launches_lc = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    s = eng_lc.stats
+    traj_lc = np.stack(eng_lc.pose_trajectory)
+    lo_lc = eng_lc.mapper.log_odds
+    ate_lc = ate(traj_lc[:, :2, 2], gt, indices=eng_lc.pose_scan_indices)
+    log(f"loop-closure path: loop_closures={s.loop_closures} "
+        f"lc_checks={s.lc_checks} lc_pairs={s.lc_pairs} "
+        f"lc_groups={s.lc_groups} lc_requeued_scans={s.lc_requeued_scans} "
+        f"wall_lc_verify={s.wall_lc_verify:.3f} s "
+        f"wall_lc_apply={s.wall_lc_apply:.3f} s "
+        f"wall_loop_closure={s.wall_loop_closure:.3f} s; "
+        f"{n_steps / wall_lc:.2f} scans/s ({wall_lc:.2f} s, warmup included) "
+        f"on {card}; launches {launches_lc}")
+    log(f"loop-closure ATE {ate_lc:.4f} m over {len(traj_lc)} poses (bound "
+        f"{LC_ATE_BOUND_M} m; without loop closure {ate_m:.4f} m)")
+    assert s.loop_closures >= 1, "no loop closure accepted"
+    assert np.isfinite(traj_lc).all(), "non-finite pose (loop closure)"
+    assert bool(torch.isfinite(lo_lc).all()), "non-finite map (loop closure)"
+    assert int((lo_lc != 0).sum()) > 0, "empty map (loop closure)"
+    assert ate_lc <= LC_ATE_BOUND_M, f"LC ATE {ate_lc:.4f} m > {LC_ATE_BOUND_M} m"
+    assert ate_lc < ate_m, f"LC ATE {ate_lc:.4f} m >= no-LC ATE {ate_m:.4f} m"
+    assert launches_lc["nn"] > 0, launches_lc
+    assert launches_lc["nn_min"] > launches["nn_min"], (launches_lc, launches)
+
+    # ── 7. pose-graph solve timings ──────────────────────────────────────
+    time_pose_graph(dev, card)
     kernels = []
     for name, key, line in (("nn_cuda", "nn", 30), ("nn_min_cuda", "nn_min", 64)):
         shapes = timings[key]
-        top = list(shapes.values())[-1]        # nn: the submap-ICP shape
+        top = list(shapes.values())[-1]   # the submap ICP / the fine sweep
         kernels.append({
             "name": name, "route": "cuda",
             "source": "icp_tpu_torch/csrc/nn_kernel.cu",
             "replaces": f"icp_tpu/ops/pallas/nn_kernel.py:{line}",
-            "launches": launches[key], "max_abs_err": err[key],
+            "launches": launches[key],
+            "launches_by_path": {"main": launches[key],
+                                 "loop_closure": launches_lc[key]},
+            "max_abs_err": err[key],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "device_ms": top["device_ms"],
             "plain_device_ms": top["plain_device_ms"], "shapes": shapes})

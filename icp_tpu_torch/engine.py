@@ -1,17 +1,26 @@
-"""Streaming SLAM engine (counterpart of icp_tpu.engine, fused path without
-loop closure).
+"""Streaming SLAM engine (counterpart of icp_tpu.engine, fused path).
 
-The host owns I/O, the scan history and the bookkeeping of step results;
-every per-scan computation runs on ``device`` through the fused step of
-models/slam_step.py. The first scan initialises the grid bounds, the ray
-bound and the sweep caps, paints the grid through
+The host owns I/O, the scan history, the pose graph and the bookkeeping of
+step results; every per-scan computation runs on ``device`` through the
+fused step of models/slam_step.py. The first scan initialises the grid
+bounds, the ray bound and the sweep caps, paints the grid through
 ``OccupancyGrid2D.update_scan`` and builds the fused state, which aliases
 the grid. Later scans go through ``process_scan`` (one at a time) or
 ``process_scans_batched`` (B at a time, map painted once per batch).
 
-Not ported yet (ROADMAP Queue 1): loop closure (``lc_enabled``), the
-modular non-fused path (``fused: false``), the device mesh
-(``distributed: true``), checkpoints and the live map view.
+Loop closure (reference slam.py:565-620) follows icp_tpu: candidate gates
+on node positions, verification of each (node, candidate) pair by rotation
+search + ICP on the raw sensor-frame scans, the reference's accept-first
+arbitration, a cooldown, then a pose-graph solve that rewrites the history
+and resyncs the fused state; the map replay is deferred to the next read
+(``sync_map``). Batched, chunks run optimistically and roll back at an
+accepted closure (``_process_scans_lc``). ``save_checkpoint`` /
+``load_checkpoint`` use icp_tpu's npz keys, so a checkpoint of either
+package loads into the other.
+
+Not ported yet (ROADMAP Queue 1): the modular non-fused path (``fused:
+false``), the device mesh (``distributed: true``), features/RANSAC
+alignment in loop-closure verification, and the live map view.
 """
 from __future__ import annotations
 
@@ -21,12 +30,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from icp_tpu_torch.models.icp import icp
 from icp_tpu_torch.models.occupancy import OccupancyGrid2D
 from icp_tpu_torch.models.pose_graph import PoseGraph2D
+from icp_tpu_torch.models.prealign import rotation_search
 from icp_tpu_torch.models.slam_step import SlamState, init_state, make_slam_step
 from icp_tpu_torch.services.imu import IMUService
 from icp_tpu_torch.services.lidar import LidarService
 from icp_tpu_torch.utils.config import SlamConfig
+from icp_tpu_torch.utils.se2 import pose_to_vec_np
 
 
 def filter_and_flatten(points, z_min=0.2, z_max=2.0):
@@ -45,12 +57,6 @@ def compute_bounds_from_scan(points_2d, margin=50.0):
     )
 
 
-def _pose_to_vec_np(T: np.ndarray) -> np.ndarray:
-    """[x, y, theta] from a 3x3 pose, on the host."""
-    return np.array([T[0, 2], T[1, 2], np.arctan2(T[1, 0], T[0, 0])],
-                    np.float32)
-
-
 def _relative_vec_np(Ti: np.ndarray, Tj: np.ndarray) -> np.ndarray:
     """vec(Ti^-1 Tj), on the host."""
     R = Ti[:2, :2]
@@ -58,7 +64,7 @@ def _relative_vec_np(Ti: np.ndarray, Tj: np.ndarray) -> np.ndarray:
     Tinv = np.eye(3, dtype=np.float64)
     Tinv[:2, :2] = R.T
     Tinv[:2, 2] = -R.T @ t
-    return _pose_to_vec_np(Tinv @ Tj)
+    return pose_to_vec_np(Tinv @ Tj)
 
 
 def _pad_fixed(points: np.ndarray, capacity: int):
@@ -87,10 +93,21 @@ class SlamStats:
     scans: int = 0
     rejected: int = 0
     submap_corrections: int = 0
+    loop_closures: int = 0
+    lc_checks: int = 0         # nodes whose candidate gates passed
+    lc_pairs: int = 0          # (node, candidate) pairs verified
+    lc_groups: int = 0         # verification groups of L pairs
     icp_iters: int = 0
     truncated_scans: int = 0   # scans out-ranging the auto ray bound
     sweep_dropped_voxels: int = 0  # sweep voxels lost to src/tgt caps
     wall_registration: float = 0.0
+    wall_mapping: float = 0.0      # (the modular path's; 0 on the fused)
+    wall_loop_closure: float = 0.0
+    wall_lc_verify: float = 0.0    # verification of the pairs inside ^
+    wall_lc_apply: float = 0.0     # optimize + history rewrite + resync
+    wall_fetch: float = 0.0        # device-to-host read of chunk outputs
+    wall_bookkeep: float = 0.0     # host per-scan bookkeeping (LC path)
+    lc_requeued_scans: int = 0     # rollback re-registrations after accepts
 
 
 class SlamEngine:
@@ -104,10 +121,11 @@ class SlamEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SlamEngine(device='cuda') but CUDA is not "
                                "available; pass device='cpu' explicitly")
-        if cfg.lc_enabled:
+        if cfg.lc_enabled and cfg.alignment_method in ("features", "both"):
             raise NotImplementedError(
-                "loop closure is not ported yet (ROADMAP Queue 1: loop "
-                "closure and the pose graph); set loop_closure.enabled: false")
+                f"loop-closure verification with features.method "
+                f"{cfg.alignment_method!r} runs feature/RANSAC alignment, "
+                f"which is not ported yet (ROADMAP Queue 1 item 2: features)")
         if not cfg.fused:
             raise NotImplementedError(
                 "only the fused path is ported (tpu.fused: true)")
@@ -125,7 +143,8 @@ class SlamEngine:
         self.prev_points: np.ndarray | None = None
         self.prev_rel_time = None
         self.mapper: OccupancyGrid2D | None = None
-        self.pose_graph = PoseGraph2D()
+        self.pose_graph = PoseGraph2D(self.device)
+        self.pose_graph.robust_phi = float(cfg.lc_robust_phi)
         self.imu_yaw_offset = 0.0
         self.stats = SlamStats()
 
@@ -135,7 +154,11 @@ class SlamEngine:
         self._batch_fn = None
         self._state: SlamState | None = None
         self._pending: list = []          # batches whose results are unread
+        self._lc_inflight = None          # LC path: chunk not yet bookkept
+        self._lc_backlog: list = []       # LC path: scans not yet dispatched
         self._last_enq_rel = None         # rel time of last enqueued scan
+        self._map_dirty = False           # closure happened; replay on read
+        self._last_lc_accept = None       # node idx of last accepted closure
         self._ray_bound: int | None = None
         self._free_cap: int | None = None
         self._sweep_caps: tuple[int, int] | None = None
@@ -227,6 +250,210 @@ class SlamEngine:
                       f"{self._ray_bound} ({rmax:.1f} m); free-space "
                       f"marking truncated (counted in stats)")
 
+    # ── loop closure (reference slam.py:231-268, 565-620) ────────────────
+    def _find_loop_candidates(self, cur_idx: int, cur_xy=None):
+        """Candidate gates of node ``cur_idx`` at the current position
+        (``global_pose`` unless ``cur_xy``) against the history."""
+        poses = np.stack([r.pose[:2, 2] for r in self.scan_history])
+        cur = self.global_pose[:2, 2] if cur_xy is None else cur_xy
+        return self._gate_candidates(poses, cur_idx, cur)
+
+    def _gate_candidates(self, xy: np.ndarray, cur_idx: int, cur_xy=None):
+        """Loop-closure candidate gates (reference slam.py:231-268) on an
+        (n, 2) array whose row k is node k's position: node gap >=
+        min_interval, distance from ``cur_xy`` (default: row cur_idx) <
+        distance_threshold, travel since >= min_cumulative_travel.
+        Returns [(node, dist)] nearest first, at most max_candidates."""
+        cfg = self.cfg
+        n = xy.shape[0]
+        steps = np.linalg.norm(np.diff(xy, axis=0), axis=1)
+        cum = np.concatenate([[0.0], np.cumsum(steps)])
+        idx = np.arange(n)
+        cur = xy[cur_idx] if cur_xy is None else cur_xy
+        dist = np.linalg.norm(xy - cur, axis=1)
+        travel = cum[min(cur_idx, n - 1)] - cum
+        ok = (
+            (cur_idx - idx >= cfg.lc_min_interval)
+            & (dist < cfg.lc_distance)
+            & (travel >= cfg.lc_min_travel)
+        )
+        cand = [(int(i), float(dist[i])) for i in idx[ok]]
+        cand.sort(key=lambda x: x[1])
+        return cand[: cfg.lc_max_candidates]
+
+    def _rebuild_map(self):
+        """Replay every keyframe at its current pose (reference
+        slam.py:271-277) into a new grid bound to ``mapper.log_odds``.
+        Keyframes are padded to the scan capacity and K to icp_tpu's
+        power-of-two bucket (padding keyframes are no-ops)."""
+        K = len(self.scan_history)
+        if K == 0:
+            self.mapper.reset()
+            return
+        cap = self._cap
+        Kb = 1 << max(6, (K - 1).bit_length())
+        if self.cfg.num_scans:
+            Kb = max(Kb, 1 << (int(self.cfg.num_scans) - 1).bit_length())
+        origins = np.zeros((Kb, 2), np.float32)
+        hits = np.zeros((Kb, cap, 2), np.float32)
+        masks = np.zeros((Kb, cap), bool)
+        for i, rec in enumerate(self.scan_history):
+            origins[i] = rec.pose[:2, 2]
+            hits[i], masks[i] = _pad_fixed(
+                rec.points @ rec.pose[:2, :2].T + rec.pose[:2, 2], cap)
+        self.mapper.replay(origins, hits, masks)
+
+    def _lc_verify_pairs(self, pairs):
+        """Verify (source scan, candidate scan) registration pairs.
+
+        ``pairs``: [(src_points, cand_points)] raw sensor-frame host
+        arrays. Returns [(R, t, err, iters)] in pair order. Each pair is
+        padded to the scan capacity and registered on the device by
+        rotation search (features.method "rotation_search") + ICP, as one
+        lane of icp_tpu's vmapped verifier computes it; verification is
+        pose-independent, which is what lets the batched path verify a
+        whole chunk before its arbitration. Pairs run one after another;
+        every result is read after the last pair is queued. The groups of
+        L = next_pow2(max_candidates) pairs that icp_tpu dispatches are
+        counted in ``stats.lc_groups``.
+        """
+        cfg = self.cfg
+        cap = self._cap
+        L = max(int(cfg.lc_max_candidates), 1)
+        L = 1 << (L - 1).bit_length()
+        self.stats.lc_groups += -(-len(pairs) // L)
+        f32 = torch.float32
+        res = []
+        for src, cand in pairs:
+            sp, sm = self._to_device(*_pad_fixed(src, cap))
+            cp, cm = self._to_device(*_pad_fixed(cand, cap))
+            if cfg.alignment_method == "rotation_search":
+                R0, t0, _ = rotation_search(
+                    sp, sm, cp, cm,
+                    voxel_size=cfg.rotation_voxel_size,
+                    angle_step_coarse=float(cfg.angle_step_coarse),
+                    angle_step_fine=float(cfg.angle_step_fine),
+                )
+            else:
+                R0 = torch.eye(2, dtype=f32, device=self.device)
+                t0 = torch.zeros(2, dtype=f32, device=self.device)
+            res.append(icp(
+                sp, sm, cp, cm, R0, t0,
+                voxel_size=cfg.icp_voxel,
+                method=cfg.icp_method,
+                max_iterations=int(cfg.icp_max_iterations),
+                normal_k=int(cfg.icp_normal_k),
+                error_threshold=cfg.icp_error_threshold,
+                nn_impl=str(cfg.nn_impl),
+            ))
+        return [(r.R.cpu().numpy(), r.t.cpu().numpy(), float(r.error),
+                 int(r.iters)) for r in res]
+
+    def _lc_verify_batched(self, points: np.ndarray, candidates):
+        """Verify all candidates [(hist_idx, dist)] of one node."""
+        return self._lc_verify_pairs(
+            [(points, self.scan_history[ci].points) for ci, _ in candidates]
+        )
+
+    def _lc_find(self, points: np.ndarray, cur_idx: int, cur_xy=None):
+        """Cooldown, candidate gates and verification, without mutating the
+        engine's state. Returns (cand_idx, cand_dist, r_lc, t_lc, err_lc)
+        of the first candidate under the error threshold (the reference's
+        accept-first rule, slam.py:575-597), else None."""
+        cfg = self.cfg
+        if (cfg.lc_cooldown > 0 and self._last_lc_accept is not None
+                and cur_idx - self._last_lc_accept < cfg.lc_cooldown):
+            return None
+        candidates = self._find_loop_candidates(cur_idx, cur_xy)
+        if not candidates:
+            return None
+        if self.verbose:
+            print(f"  LC candidates for scan {cur_idx}: "
+                  + ", ".join(f"#{ci}({cd:.1f}m)" for ci, cd in candidates))
+        verdicts = self._lc_verify_batched(points, candidates)
+        for k, (cand_idx, cand_dist) in enumerate(candidates):
+            r_lc, t_lc, err_lc, it_lc = verdicts[k]
+            self.stats.icp_iters += it_lc
+            if self.verbose:
+                mark = "ok" if err_lc < cfg.lc_error_threshold else "x"
+                print(f"    LC scan {cur_idx}<->{cand_idx}: "
+                      f"icp_err={err_lc:.6f}  {mark}")
+            if err_lc < cfg.lc_error_threshold:
+                return cand_idx, cand_dist, r_lc, t_lc, err_lc
+        return None
+
+    def _lc_apply(self, cur_idx, cand_idx, cand_dist, r_lc, t_lc, err_lc):
+        """Accept a verified closure: add the edge, optimize the graph,
+        rewrite history and trajectory, and mark the map dirty (reference
+        slam.py:583-620; the replay waits for the next ``sync_map``)."""
+        cfg = self.cfg
+        # edge z = vec(T_lc^-1)   (reference slam.py:583-593)
+        T_lc = np.eye(3, dtype=np.float32)
+        T_lc[:2, :2] = r_lc
+        T_lc[:2, 2] = t_lc
+        z_lc = _relative_vec_np(T_lc, np.eye(3, dtype=np.float32))
+        w = cfg.lc_info_scale / max(err_lc, 1e-6)
+        if cfg.lc_info_cap > 0:
+            # bound the weight of a near-perfect re-match (the reference's
+            # scale / err is uncapped)
+            w = min(w, cfg.lc_info_cap)
+        lc_info = np.eye(3, dtype=np.float32) * w
+        self.pose_graph.add_edge(cur_idx, cand_idx, z_lc, lc_info,
+                                 robust=bool(cfg.lc_robust))
+        self._last_lc_accept = cur_idx
+        if self.verbose:
+            print(f"  * Loop closure accepted: scan {cur_idx} <-> "
+                  f"scan {cand_idx} (dist={cand_dist:.2f}m, "
+                  f"icp_err={err_lc:.6f})")
+        self.stats.loop_closures += 1
+        self.pose_graph.optimize(n_iterations=cfg.lc_opt_iters, fix_node=0)
+        corrected = self.pose_graph.get_poses_as_matrices()
+        for k, rec in enumerate(self.scan_history):
+            rec.pose = corrected[k]
+        self.global_pose = corrected[len(self.scan_history) - 1].copy()
+        self.pose_trajectory = [r.pose for r in self.scan_history[1:]]
+        if self.mapper is not None:
+            # registration never reads the grid, and the replay repaints
+            # every keyframe over a zeroed grid, so replaying at the next
+            # read gives the map a replay per closure would
+            if self.verbose:
+                print("  Map rebuild deferred to next read ...")
+            self._map_dirty = True
+
+    def _try_loop_closure(self, points: np.ndarray, cur_idx: int,
+                          cur_xy=None) -> bool:
+        """Per-scan arbitration: find and verify, then apply on accept."""
+        found = self._lc_find(points, cur_idx, cur_xy)
+        if found is None:
+            return False
+        self._lc_apply(cur_idx, *found)
+        return True
+
+    def _resync_state_after_lc(self, points_2d: np.ndarray):
+        """Rebuild the fused state from the corrected history: the ring from
+        the last submap_size keyframes at their new poses, prev from
+        ``points_2d``. The grid stays the live one (its replay is
+        deferred)."""
+        cfg = self.cfg
+        K = max(int(cfg.submap_size), 1)
+        cap = self._cap
+        ring_pts = np.zeros((K, cap, 2), np.float32)
+        ring_mask = np.zeros((K, cap), bool)
+        recent = self.scan_history[-K:]
+        for i, rec in enumerate(recent):
+            ring_pts[i], ring_mask[i] = _pad_fixed(
+                rec.points @ rec.pose[:2, :2].T + rec.pose[:2, 2], cap)
+        sp, sm = self._to_device(*_pad_fixed(points_2d, cap))
+        rp, rm, gpose = self._to_device(ring_pts, ring_mask,
+                                        self.global_pose.astype(np.float32))
+        self._state = SlamState(
+            prev_pts=sp, prev_mask=sm, global_pose=gpose,
+            ring_pts=rp, ring_mask=rm,
+            ring_idx=torch.tensor(len(recent), dtype=torch.int32,
+                                  device=self.device),
+            log_odds=self._state.log_odds,
+        )
+
     # ── fused path (models/slam_step.py) ─────────────────────────────────
     def _build_fused(self, first_points: np.ndarray):
         cfg = self.cfg
@@ -271,9 +498,21 @@ class SlamEngine:
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
 
     def sync_map(self):
-        """Point the mapper at the device grid (for export). The fused state
-        updates the grid in place, so this copies nothing."""
-        if self._state is not None and self.mapper is not None:
+        """Bring the mapper up to date with the device grid (for export).
+
+        The fused state paints its grid in place and the mapper aliases it,
+        so without a closure this copies nothing. If a closure marked the
+        map dirty, the history is replayed at the corrected poses into a
+        new grid first, and the fused state takes that grid, so later
+        paints continue from it (the reference's rebuild, slam.py:271-277,
+        deferred to this read)."""
+        if self._state is None or self.mapper is None:
+            return
+        if self._map_dirty:
+            self._rebuild_map()
+            self._map_dirty = False
+            self._state = self._state._replace(log_odds=self.mapper.log_odds)
+        else:
             self.mapper.log_odds = self._state.log_odds
 
     def _bookkeep_fused(self, points_2d, out_pose, out_error, out_accepted,
@@ -291,7 +530,7 @@ class SlamEngine:
         if out_sub:
             self.stats.submap_corrections += 1
         self.pose_trajectory.append(self.global_pose.copy())
-        cur_idx = self.pose_graph.add_node(_pose_to_vec_np(self.global_pose))
+        cur_idx = self.pose_graph.add_node(pose_to_vec_np(self.global_pose))
         z_odom = _relative_vec_np(self.scan_history[cur_idx - 1].pose,
                                   self.global_pose)
         self.pose_graph.add_edge(
@@ -310,10 +549,196 @@ class SlamEngine:
                   f"pos=({pos[0]:+.3f}, {pos[1]:+.3f})  yaw={yaw:+.2f} deg")
         return True
 
+    def _arbitrate_lc_chunk(self, chunk_s: list, chunk_r: list, outs_dev):
+        """Read one chunk's results, verify its loop-closure candidates,
+        then bookkeep with the reference's per-scan arbitration
+        (slam.py:565-620). Returns (n_accepted, rollback_j): rollback_j is
+        the chunk position of an accepted closure (the scans after it were
+        not bookkept and must be re-queued), or None.
+
+        Exact as icp_tpu's: before an accept inside the chunk no
+        optimization has run, so the gates (pure functions of the node
+        positions, all in the chunk's output) see what the reference sees;
+        verification registers raw scans, so verdicts can be computed up
+        front, and an accept discards every later verdict.
+        """
+        cfg = self.cfg
+        t_f = time.perf_counter()
+        outs = type(outs_dev)(*(f.cpu().numpy() for f in outs_dev))
+        self.stats.wall_fetch += time.perf_counter() - t_f
+        self._check_sub_saturation(outs.sub_n)
+        self._check_sweep_drop(outs.sweep_drop)
+        n = len(chunk_s)
+        acc = [bool(outs.accepted[j]) for j in range(n)]
+
+        # ── candidate gates + verification, before any bookkeeping ───────
+        t2 = time.perf_counter()
+        verdicts_by_j: dict[int, tuple] = {}
+        n_hist = len(self.scan_history)
+        hist_xy = (
+            np.stack([r.pose[:2, 2] for r in self.scan_history])
+            if n_hist else np.zeros((0, 2), np.float32)
+        )
+        chunk_nodes = []               # (chunk pos j, node idx, position)
+        k = n_hist
+        for j in range(n):
+            if not acc[j]:
+                continue
+            chunk_nodes.append(
+                (j, k, np.asarray(outs.pose[j][:2, 2], np.float32))
+            )
+            k += 1
+        jobs = []                      # (j, node_idx, candidates)
+        if chunk_nodes:
+            all_xy = np.concatenate(
+                [hist_xy] + [xy[None] for _, _, xy in chunk_nodes]
+            )
+            for j, ni, _ in chunk_nodes:
+                if ni < cfg.lc_min_interval:
+                    continue
+                if (cfg.lc_cooldown > 0 and self._last_lc_accept is not None
+                        and ni - self._last_lc_accept < cfg.lc_cooldown):
+                    # in-chunk accepts roll back, so the pre-chunk accept
+                    # is the cooldown reference of every node
+                    continue
+                cands = self._gate_candidates(all_xy[: ni + 1], ni)
+                if cands:
+                    jobs.append((j, ni, cands))
+        if jobs:
+            pts_of = {ni: chunk_s[j] for j, ni, _ in chunk_nodes}
+
+            def node_points(ci):
+                return (self.scan_history[ci].points if ci < n_hist
+                        else pts_of[ci])
+            pairs = [
+                (chunk_s[j], node_points(ci))
+                for j, ni, cands in jobs
+                for ci, _ in cands
+            ]
+            self.stats.lc_checks += len(jobs)
+            self.stats.lc_pairs += len(pairs)
+            tv = time.perf_counter()
+            verd = self._lc_verify_pairs(pairs)
+            self.stats.wall_lc_verify += time.perf_counter() - tv
+            off = 0
+            for j, ni, cands in jobs:
+                verdicts_by_j[j] = (ni, cands, verd[off:off + len(cands)])
+                off += len(cands)
+        self.stats.wall_loop_closure += time.perf_counter() - t2
+
+        # ── bookkeeping + the reference's per-scan arbitration ───────────
+        n_ok = 0
+        for j in range(n):
+            t_b = time.perf_counter()
+            ok = self._bookkeep_fused(
+                chunk_s[j],
+                np.asarray(outs.pose[j]), float(outs.error[j]),
+                acc[j], bool(outs.sub_applied[j]),
+                float(outs.err_inc[j]), int(outs.iters[j]),
+            )
+            self.prev_points = chunk_s[j]
+            self.prev_rel_time = chunk_r[j]
+            self.stats.wall_bookkeep += time.perf_counter() - t_b
+            n_ok += bool(ok)
+            if not ok or j not in verdicts_by_j:
+                continue
+            ni, cands, verds = verdicts_by_j[j]
+            t2 = time.perf_counter()
+            if self.verbose:
+                print(f"  LC candidates for scan {ni}: "
+                      + ", ".join(f"#{ci}({cd:.1f}m)" for ci, cd in cands))
+            hit = None
+            for kk, (ci, cd) in enumerate(cands):
+                r_lc, t_lc, err_lc, it_lc = verds[kk]
+                self.stats.icp_iters += it_lc
+                if self.verbose:
+                    mark = ("ok" if err_lc < cfg.lc_error_threshold
+                            else "x")
+                    print(f"    LC scan {ni}<->{ci}: "
+                          f"icp_err={err_lc:.6f}  {mark}")
+                if err_lc < cfg.lc_error_threshold:
+                    hit = (ci, cd, r_lc, t_lc, err_lc)
+                    break
+            if hit is None:
+                self.stats.wall_loop_closure += time.perf_counter() - t2
+                continue
+            t_a = time.perf_counter()
+            self._lc_apply(ni, *hit)
+            self._resync_state_after_lc(chunk_s[j])
+            self.stats.wall_lc_apply += time.perf_counter() - t_a
+            # IMU deltas of the re-queued scans chain off the accepted node
+            self._last_enq_rel = chunk_r[j]
+            self.stats.wall_loop_closure += time.perf_counter() - t2
+            return n_ok, j
+        return n_ok, None
+
+    def _process_scans_lc(self, scans: list, rel_times: list) -> int:
+        """Optimistic batching under loop closure (icp_tpu's pipeline).
+
+        One chunk is kept in flight across calls: chunk k+1 is dispatched
+        before chunk k is arbitrated, and ``finish()`` drains the tail.
+        When a closure is accepted at chunk position j, everything after it
+        (the chunk's tail and the whole next chunk, both computed against
+        the pre-closure state) is re-queued, the closure is applied, the
+        fused state is resynced from the corrected history and stepping
+        resumes at j+1. A stale chunk may have painted the grid, but every
+        accept marks the map dirty, so the next read replays the history
+        over a zeroed grid. The port's step reads stop flags on the host,
+        so "in flight" buys no overlap here; the structure is kept so the
+        re-queue counts are icp_tpu's.
+        """
+        self._lc_backlog.extend(zip(scans, rel_times))
+        return self._lc_pump(flush=False)
+
+    def _lc_pump(self, flush: bool) -> int:
+        accepted = 0
+        B = int(self.cfg.batch_scans)
+
+        def dispatchable() -> bool:
+            return bool(self._lc_backlog) and (
+                flush or len(self._lc_backlog) >= B
+            )
+
+        def dispatch_next():
+            chunk = self._lc_backlog[:B]
+            del self._lc_backlog[:B]
+            cs = [p for p, _ in chunk]
+            cr = [r for _, r in chunk]
+            return cs, cr, self._dispatch_chunk_async(cs, cr)
+
+        while True:
+            if self._lc_inflight is None:
+                if not dispatchable():
+                    return accepted
+                self._lc_inflight = dispatch_next()
+                continue
+            # one chunk in flight: dispatch the next before arbitrating it
+            nxt = dispatch_next() if dispatchable() else None
+            if nxt is None and not flush:
+                # keep the chunk in flight for the next call or finish()
+                return accepted
+            cs, cr, outs = self._lc_inflight
+            n_ok, rollback_j = self._arbitrate_lc_chunk(cs, cr, outs)
+            accepted += n_ok
+            if rollback_j is not None:
+                requeue = list(zip(cs[rollback_j + 1:],
+                                   cr[rollback_j + 1:]))
+                if nxt is not None:
+                    requeue += list(zip(nxt[0], nxt[1]))
+                self.stats.lc_requeued_scans += len(requeue)
+                self._lc_backlog[:0] = requeue
+                self._lc_inflight = None
+            else:
+                self._lc_inflight = nxt
+
     def process_scans_batched(self, scans: list, rel_times: list) -> int:
         """Fused batch path: B scans through one ``batch`` call. Results are
-        bookkept one call later (``_drain_pending``) or at ``finish()``.
-        Returns the number of accepted scans bookkept by this call."""
+        bookkept one call later (``_drain_pending``) or at ``finish()``;
+        with loop closure, chunks run optimistically with rollback at
+        accepted closures (``_process_scans_lc``). Returns the number of
+        accepted scans bookkept by this call."""
+        if self.cfg.lc_enabled and self._state is not None:
+            return self._process_scans_lc(scans, rel_times)
         return self._dispatch_batch(scans, rel_times)
 
     def _pack_batch(self, scans: list, rel_times: list, prev_rel):
@@ -349,30 +774,54 @@ class SlamEngine:
             deltas[:len(scans)] = d
         return pts, msk, deltas, yaws
 
-    def _dispatch_batch(self, scans: list, rel_times: list) -> int:
-        """Run len(scans) scans through the fused batch; bookkeep the
-        previous batch's results after this one is queued."""
+    def _dispatch_chunk_async(self, scans: list, rel_times: list):
+        """One fused batch whose results stay on the device until they are
+        bookkept (``_drain_pending``, ``_arbitrate_lc_chunk``). IMU deltas
+        chain off the last enqueued scan. (icp_tpu pads a loop-closure
+        chunk to B scans to reuse one compiled program; padding scans are
+        no-ops, so the port runs the chunk as it is.)"""
         prev_rel = (self._last_enq_rel if self._last_enq_rel is not None
                     else self.prev_rel_time)
         arrays = self._pack_batch(scans, rel_times, prev_rel)
         t0 = time.perf_counter()
         self._state, outs = self._batch_fn(self._state,
                                            *self._to_device(*arrays))
+        self._last_enq_rel = rel_times[-1]
+        self.stats.wall_registration += time.perf_counter() - t0
+        return outs
+
+    def _dispatch_batch(self, scans: list, rel_times: list) -> int:
+        """Run len(scans) scans through the fused batch; bookkeep the
+        previous batch's results after this one is queued."""
+        outs = self._dispatch_chunk_async(scans, rel_times)
+        t0 = time.perf_counter()
         accepted = self._drain_pending()
         # snapshot the lists: callers may mutate/clear them after we return
         self._pending.append((list(scans), list(rel_times), outs))
-        self._last_enq_rel = rel_times[-1]
         self.stats.wall_registration += time.perf_counter() - t0
         return accepted
 
     def finish(self):
-        """Bookkeep the results still pending (call after the last batch)."""
-        return self._drain_pending()
+        """Bookkeep the results still pending and, under loop closure,
+        drain the chunk in flight and the backlog (call after the last
+        batch)."""
+        accepted = self._drain_pending()
+        if self._lc_inflight is not None or self._lc_backlog:
+            accepted += self._lc_pump(flush=True)
+        return accepted
 
     def warmup(self):
-        """Run the batch program once on all-masked padding scans (exact
-        no-ops under the degenerate gate), so allocator and kernel build
-        costs land before a timed run. Call after the first scan."""
+        """Run every device path of the run once, so allocator and kernel
+        build costs land before a timed run. Call after the first scan.
+
+        The batch runs on all-masked padding scans (exact no-ops under the
+        degenerate gate). With loop closure, as in icp_tpu: scan 0 is
+        verified against itself (result discarded, one group counted), the
+        map is replayed into the mapper, the graph's capacity is reserved
+        for ``num_scans`` and the graph is optimized once (the odometry
+        chain is consistent, so this moves nodes by rounding only); the
+        closing ``sync_map`` then points the mapper back at the fused
+        state's grid, as icp_tpu's does."""
         if self._state is None or not self.scan_history:
             return
         B, cap = self.cfg.batch_scans, self._cap
@@ -380,6 +829,15 @@ class SlamEngine:
         m = torch.zeros((B, cap), dtype=torch.bool, device=self.device)
         d = torch.zeros(B, dtype=torch.float32, device=self.device)
         self._state, _ = self._batch_fn(self._state, z, m, d, d)
+        if self.cfg.lc_enabled:
+            self._lc_verify_batched(self.scan_history[0].points, [(0, 0.0)])
+            if self.mapper is not None:
+                self._rebuild_map()
+            if self.cfg.num_scans:
+                self.pose_graph.reserve(int(self.cfg.num_scans) + 1)
+            if self.pose_graph.n_edges:
+                self.pose_graph.optimize(n_iterations=self.cfg.lc_opt_iters,
+                                         fix_node=0)
         self.sync_map()
 
     def _check_sub_saturation(self, sub_n) -> None:
@@ -445,11 +903,21 @@ class SlamEngine:
 
         self.prev_points = points_2d
         self.prev_rel_time = rel_time_us
-        return self._bookkeep_fused(
+        ok = self._bookkeep_fused(
             points_2d, np.asarray(out.pose), float(out.error),
             bool(out.accepted), bool(out.sub_applied),
             float(out.err_inc), int(out.iters),
         )
+        if not ok:
+            return False
+
+        cur_idx = self.pose_graph.n_nodes - 1
+        if self.cfg.lc_enabled and cur_idx >= self.cfg.lc_min_interval:
+            t2 = time.perf_counter()
+            if self._try_loop_closure(points_2d, cur_idx):
+                self._resync_state_after_lc(points_2d)
+            self.stats.wall_loop_closure += time.perf_counter() - t2
+        return True
 
     @property
     def pose_scan_indices(self) -> np.ndarray:
@@ -458,6 +926,116 @@ class SlamEngine:
         indices=...)``."""
         return np.array([r.scan_idx for r in self.scan_history[1:]],
                         dtype=np.int64)
+
+    # ── checkpoint / resume ──────────────────────────────────────────────
+    def save_checkpoint(self, path: str):
+        """Persist the SLAM state (poses, scans, graph with its robust
+        flags, grid, counters, cooldown) to one npz with icp_tpu's keys."""
+        self.finish()
+        self.sync_map()
+        n = len(self.scan_history)
+        pg = self.pose_graph
+        pts = [r.points for r in self.scan_history]
+        np.savez_compressed(
+            path,
+            global_pose=self.global_pose,
+            poses=np.stack([r.pose for r in self.scan_history])
+            if n else np.zeros((0, 3, 3), np.float32),
+            scan_lens=np.array([len(p) for p in pts], np.int64),
+            scan_points=(np.concatenate(pts) if n
+                         else np.zeros((0, 2), np.float32)),
+            scan_indices=np.array([r.scan_idx for r in self.scan_history],
+                                  np.int64),
+            log_odds=(self.mapper.log_odds.cpu().numpy()
+                      if self.mapper is not None else np.zeros((0, 0))),
+            grid_meta=np.array(
+                [self.mapper.min_x, self.mapper.max_x, self.mapper.min_y,
+                 self.mapper.max_y, self.mapper.resolution]
+                if self.mapper is not None else [0, 0, 0, 0, 0.1]),
+            pg_nodes=np.stack(pg.nodes) if pg.n_nodes
+            else np.zeros((0, 3), np.float32),
+            pg_ei=np.array(pg._edges_i, np.int32),
+            pg_ej=np.array(pg._edges_j, np.int32),
+            pg_z=np.stack(pg._edges_z) if pg.n_edges
+            else np.zeros((0, 3), np.float32),
+            pg_om=np.stack(pg._edges_om) if pg.n_edges
+            else np.zeros((0, 3, 3), np.float32),
+            pg_rb=np.array(pg._edges_rb, bool),
+            prev_rel_time=np.array(
+                [self.prev_rel_time if self.prev_rel_time is not None else -1]),
+            imu_yaw_offset=np.array([self.imu_yaw_offset]),
+            # explicit counters (a run may end on rejections) and the
+            # cooldown state (else a resume re-closes a just-closed loop)
+            stats_scans=np.array([self.stats.scans], np.int64),
+            stats_rejected=np.array([self.stats.rejected], np.int64),
+            last_lc_accept=np.array(
+                [self._last_lc_accept if self._last_lc_accept is not None
+                 else -1], np.int64),
+        )
+
+    def load_checkpoint(self, path: str):
+        """Restore a state saved by ``save_checkpoint`` (of either package)
+        and rebuild the fused state; streaming resumes after it."""
+        cfg = self.cfg
+        d = np.load(path)
+        self.global_pose = d["global_pose"].astype(np.float32)
+        lens = d["scan_lens"]
+        flat = d["scan_points"]
+        poses = d["poses"]
+        idxs = (d["scan_indices"] if "scan_indices" in d
+                else np.arange(len(lens)))
+        self.scan_history = []
+        off = 0
+        for i, ln in enumerate(lens):
+            self.scan_history.append(
+                ScanRecord(flat[off:off + ln].astype(np.float32),
+                           poses[i].astype(np.float32),
+                           scan_idx=int(idxs[i])))
+            off += ln
+        self.pose_trajectory = [r.pose for r in self.scan_history[1:]]
+        if "stats_scans" in d:
+            self.stats.scans = int(d["stats_scans"][0])
+            self.stats.rejected = int(d["stats_rejected"][0])
+        else:
+            # older checkpoints: infer from the last accepted scan's index
+            self.stats.scans = int(idxs[-1]) if len(idxs) else 0
+        if "last_lc_accept" in d:
+            lla = int(d["last_lc_accept"][0])
+            self._last_lc_accept = None if lla < 0 else lla
+        first = (self.scan_history[0].points if self.scan_history
+                 else np.ones((1, 2), np.float32))
+        gm = d["grid_meta"]
+        if d["log_odds"].size:
+            if self._ray_bound is None:
+                self._ray_bound = self._resolve_ray_bound(first)
+            self._free_cap = self._resolve_free_cap(first, self._ray_bound)
+            self.mapper = OccupancyGrid2D(
+                gm[0], gm[1], gm[2], gm[3], resolution=gm[4],
+                p_hit=cfg.p_hit, p_miss=cfg.p_miss,
+                log_odds_min=cfg.log_odds_min, log_odds_max=cfg.log_odds_max,
+                max_ray_cells=self._ray_bound, device=self.device,
+            )
+            self.mapper.log_odds = torch.as_tensor(
+                d["log_odds"], dtype=torch.float32, device=self.device)
+        self.pose_graph = PoseGraph2D(self.device)
+        self.pose_graph.robust_phi = float(cfg.lc_robust_phi)
+        for v in d["pg_nodes"]:
+            self.pose_graph.add_node(v)
+        rbs = (d["pg_rb"] if "pg_rb" in d
+               else np.zeros(len(d["pg_ei"]), bool))
+        for i, j, z, om, rb in zip(d["pg_ei"], d["pg_ej"], d["pg_z"],
+                                   d["pg_om"], rbs):
+            self.pose_graph.add_edge(int(i), int(j), z, om, robust=bool(rb))
+        prt = float(d["prev_rel_time"][0])
+        self.prev_rel_time = None if prt < 0 else prt
+        self.imu_yaw_offset = float(d["imu_yaw_offset"][0])
+        if self.scan_history:
+            self.prev_points = self.scan_history[-1].points
+            if self._sweep_caps is None:
+                self._resolve_sweep_caps(self.scan_history[0].points)
+            if self.mapper is not None:
+                self._build_fused(self.scan_history[0].points)
+                self._resync_state_after_lc(self.prev_points)
 
     # ── per-scan state machine ───────────────────────────────────────────
     def process_scan(self, points_2d: np.ndarray, rel_time_us=None) -> bool:
@@ -499,7 +1077,7 @@ class SlamEngine:
                 ScanRecord(points_2d.copy(), self.global_pose.copy(),
                            scan_idx=0)
             )
-            self.pose_graph.add_node(_pose_to_vec_np(self.global_pose))
+            self.pose_graph.add_node(pose_to_vec_np(self.global_pose))
             self._build_fused(points_2d)
             return False
 
@@ -517,10 +1095,13 @@ class SlamEngine:
                                         imu_delta)
 
 
-def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda"):
+def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda",
+             resume: str | None = None):
     """File-driven entry (reference slam.py:282-657).
 
-    Returns (global_pose, pose_trajectory, mapper, engine).
+    Returns (global_pose, pose_trajectory, mapper, engine). ``resume``
+    restores a checkpoint saved with ``SlamEngine.save_checkpoint`` (by
+    either package) before streaming.
     """
     if isinstance(cfg, dict):
         cfg = SlamConfig.from_dict(cfg)
@@ -532,6 +1113,8 @@ def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda"):
         imu = IMUService(cfg.imu_file)
 
     engine = SlamEngine(cfg, imu=imu, verbose=verbose, device=device)
+    if resume:
+        engine.load_checkpoint(resume)
     service = LidarService(cfg.data_file, sleep_s=cfg.sleep_s, loop=cfg.loop)
     batch_n = max(int(cfg.batch_scans), 1)
 
@@ -541,8 +1124,11 @@ def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda"):
     pend_rel: list = []
 
     def flush():
-        if pend_pts:
+        if pend_pts and engine._state is not None:
             engine.process_scans_batched(pend_pts, pend_rel)
+        else:
+            for p, r in zip(pend_pts, pend_rel):
+                engine.process_scan(p, r)
         pend_pts.clear()
         pend_rel.clear()
 
@@ -556,8 +1142,8 @@ def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda"):
             points = filter_and_flatten(raw_points, cfg.z_min, cfg.z_max)
             if points.shape[0] < 10:
                 continue
-            init_scan = engine._state is None
-            if init_scan or batch_n == 1:
+            init_scan = engine._state is None and engine.prev_points is None
+            if engine._state is None or batch_n == 1:
                 engine.process_scan(points, rel_us)
             else:
                 pend_pts.append(points)

@@ -1,6 +1,5 @@
 """Log-odds occupancy grid on the device (counterpart of
-icp_tpu.models.occupancy.OccupancyGrid2D, without ``replay``, which belongs
-to loop closure).
+icp_tpu.models.occupancy.OccupancyGrid2D).
 
 Export formats (CSV / NPY probability grids) match the reference
 (utilities/mapping.py:183-187).
@@ -79,6 +78,39 @@ class OccupancyGrid2D:
             self.l_hit, self.l_miss, self.log_odds_min, self.log_odds_max,
             max_steps=self.max_ray_cells,
         )
+
+    def replay(self, origins, hits, masks):
+        """Rebuild the grid from K keyframes: a zeroed grid, then one
+        ``raytrace_update`` per keyframe in order, each with its own clamp
+        (the reference's rebuild loop, slam.py:271-277, and icp_tpu's
+        lax.scan replay).
+
+        origins (K, 2) and hits (K, N, 2) world coordinates; masks (K, N)
+        bool, where an all-False row is a padding keyframe (a no-op, so it
+        is skipped). The replayed grid is a NEW tensor bound to
+        ``log_odds``: a tensor that aliased the old grid (the fused state's)
+        keeps the old values, as icp_tpu's replay leaves its state's grid.
+        """
+        masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
+        origins = torch.as_tensor(origins, dtype=torch.float32,
+                                  device=self.device)
+        hits = torch.as_tensor(hits, dtype=torch.float32, device=self.device)
+        grid = (self.min_x, self.min_y, self.resolution)
+        lo = torch.zeros((self.ny, self.nx), dtype=torch.float32,
+                         device=self.device)
+        for k in torch.nonzero(masks.any(dim=1)).flatten().tolist():
+            raytrace_update(
+                lo, world_to_cells(origins[k], *grid),
+                world_to_cells(hits[k], *grid), masks[k],
+                self.l_hit, self.l_miss, self.log_odds_min,
+                self.log_odds_max, max_steps=self.max_ray_cells)
+        self.log_odds = lo
+
+    def reset(self):
+        """Back to unexplored (reference mapping.py:143-145), as a new
+        tensor (see ``replay``)."""
+        self.log_odds = torch.zeros((self.ny, self.nx), dtype=torch.float32,
+                                    device=self.device)
 
     # ── probability (reference mapping.py:150-160) ──────────────────────
     def to_probability(self):

@@ -12,6 +12,12 @@ import torch
 BIG = 1e30
 
 
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (minimum 8)."""
+    n = max(int(n), 8)
+    return 1 << (n - 1).bit_length()
+
+
 def _sum(x: torch.Tensor, dim):
     return x.sum() if dim is None else x.sum(dim)
 

@@ -1,15 +1,48 @@
 """SE(2) rigid-transform primitives on torch tensors (counterpart of
-icp_tpu.utils.se2). Every function takes arbitrary leading batch dims."""
+icp_tpu.utils.se2). Every function takes arbitrary leading batch dims.
+
+``vec_to_pose_np`` / ``pose_to_vec_np`` are the same conversions on numpy
+arrays, for host code (the pose graph's coarse level, the engine's edges).
+"""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
 def wrap_angle(a):
-    """Wrap angle(s) to [-pi, pi) (floor-mod, as icp_tpu's ``wrap_angle``)."""
+    """Wrap angle(s) to [-pi, pi) (floor-mod, as icp_tpu's ``wrap_angle``;
+    its docstring says (-pi, pi], but the floor-mod gives [-pi, pi))."""
     return torch.remainder(a + math.pi, 2.0 * math.pi) - math.pi
+
+
+def pose_to_vec(T):
+    """(..., 3, 3) homogeneous matrix -> (..., 3) [x, y, theta]."""
+    return torch.stack([T[..., 0, 2], T[..., 1, 2],
+                        torch.atan2(T[..., 1, 0], T[..., 0, 0])], dim=-1)
+
+
+def vec_to_pose(v):
+    """(..., 3) [x, y, theta] -> (..., 3, 3) homogeneous matrix."""
+    x, y, theta = v[..., 0], v[..., 1], v[..., 2]
+    c, s = torch.cos(theta), torch.sin(theta)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    return torch.stack([torch.stack([c, -s, x], dim=-1),
+                        torch.stack([s, c, y], dim=-1),
+                        torch.stack([zero, zero, one], dim=-1)], dim=-2)
+
+
+def pose_to_vec_np(T, dtype=np.float32):
+    """Host form of ``pose_to_vec`` for one (3, 3) numpy matrix."""
+    return np.array([T[0, 2], T[1, 2], np.arctan2(T[1, 0], T[0, 0])], dtype)
+
+
+def vec_to_pose_np(v, dtype=np.float64):
+    """Host form of ``vec_to_pose`` for one [x, y, theta] vector."""
+    c, s = np.cos(v[2]), np.sin(v[2])
+    return np.array([[c, -s, v[0]], [s, c, v[1]], [0.0, 0.0, 1.0]], dtype)
 
 
 def rotmat(theta):

@@ -254,14 +254,18 @@ def test_nn_cuda_matches_plain_on_card(cuda_device, case):
 
 
 @pytest.mark.gpu
-def test_nn_min_cuda_matches_plain_on_card(cuda_device):
-    """nn_min_cuda against nn_min_plain at the fine-sweep shape."""
+@pytest.mark.parametrize("rows_n,m", [(20 * 768, 1792), (240 * 768, 768),
+                                      (30 * 768, 768)],
+                         ids=["fine_sweep", "lc_coarse", "lc_fine"])
+def test_nn_min_cuda_matches_plain_on_card(cuda_device, rows_n, m):
+    """nn_min_cuda against nn_min_plain at the submap fine sweep's shape
+    and at loop-closure verification's coarse and fine sweeps."""
     rng = np.random.default_rng(7)
-    rows = torch.as_tensor(rng.uniform(-20, 20, (20 * 768, 2)).astype(np.float32),
+    rows = torch.as_tensor(rng.uniform(-20, 20, (rows_n, 2)).astype(np.float32),
                            device=cuda_device)
-    tgt = torch.as_tensor(rng.uniform(-20, 20, (1792, 2)).astype(np.float32),
+    tgt = torch.as_tensor(rng.uniform(-20, 20, (m, 2)).astype(np.float32),
                           device=cuda_device)
-    msk = torch.as_tensor(rng.random(1792) < 0.9, device=cuda_device)
+    msk = torch.as_tensor(rng.random(m) < 0.9, device=cuda_device)
     d_k = K.nn_min_cuda(rows, tgt, msk)
     d_p = K.nn_min_plain(rows, tgt, msk)
     torch.cuda.synchronize()

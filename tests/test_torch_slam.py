@@ -1,6 +1,7 @@
-"""The slice as a whole: icp_tpu_torch's fused SLAM step and engine against
-icp_tpu's on the dryrun sequence (JAX on the CPU), plus the package's
-import hygiene, its guards for what is not ported yet, and its CLI.
+"""The main path as a whole: icp_tpu_torch's fused SLAM step and engine
+against icp_tpu's on the dryrun sequence (JAX on the CPU), plus the
+package's import hygiene, its guards for what is not ported yet, and its
+CLI (loop closure and checkpoints included).
 
 The sequence is the 10-scan x 120-beam straight run with the
 __graft_entry__.py dryrun config (loop closure off, distributed off).
@@ -187,6 +188,9 @@ def test_port_imports_no_jax():
         "import icp_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(icp_tpu_torch.__path__, 'icp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('icp_tpu_torch.parallel', 'icp_tpu_torch.parallel.dist_pose_graph',\n"
+        "          'icp_tpu_torch.models.pose_graph'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icp_tpu', 'yaml')]\n"
         "assert not bad, bad\n"
         "import torch\n"
@@ -202,19 +206,28 @@ def test_port_imports_no_jax():
 
 
 def test_engine_refuses_what_is_not_ported(dryrun):
-    """Loop closure, the non-fused path, a mesh and the features prealign
-    raise NotImplementedError; device='cuda' without CUDA raises."""
+    """The non-fused path, a mesh, features/both alignment in loop-closure
+    verification (with IMU too) and the features prealign raise
+    NotImplementedError; loop closure itself is accepted; device='cuda'
+    without CUDA raises."""
     import copy
 
     from icp_tpu_torch.models.slam_step import make_slam_step
 
-    for section, key, value in [("loop_closure", "enabled", True),
-                                ("tpu", "fused", False),
-                                ("tpu", "distributed", True)]:
+    for changes in ([("tpu", "fused", False)],
+                    [("tpu", "distributed", True)],
+                    [("loop_closure", "enabled", True),
+                     ("features", "method", "features")],
+                    [("loop_closure", "enabled", True),
+                     ("features", "method", "both")]):
         d = copy.deepcopy(DRYRUN_CFG)
-        d[section][key] = value
+        for section, key, value in changes:
+            d[section][key] = value
         with pytest.raises(NotImplementedError):
-            TEngine(TConfig.from_dict(d), device="cpu")
+            TEngine(TConfig.from_dict(d), imu=TIMU(dryrun[3]), device="cpu")
+    d = copy.deepcopy(DRYRUN_CFG)
+    d["loop_closure"]["enabled"] = True
+    TEngine(TConfig.from_dict(d), device="cpu")
     with pytest.raises(NotImplementedError):
         make_slam_step(use_imu=False, prealign="features", icp_method="point_to_line",
                        icp_voxel=0.1, icp_max_iterations=5, icp_normal_k=5,
@@ -234,8 +247,8 @@ def test_engine_refuses_what_is_not_ported(dryrun):
 
 def test_cli_runs_synthetic_sequence(tmp_path):
     """python -m icp_tpu_torch.cli --synth on a small YAML config with loop
-    closure on: runs without it (with a notice) and writes the map and
-    the trajectory."""
+    closure on: runs with it, prints the loop-closure count and wall, and
+    writes the map, the trajectory and a checkpoint that --resume loads."""
     data = tmp_path / "lidar.csv"
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(
@@ -256,14 +269,27 @@ def test_cli_runs_synthetic_sequence(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "icp_tpu_torch.cli", "--config", str(cfg),
          "--synth", "--synth-scans", "8", "--synth-beams", "120",
-         "--device", "cpu", "--quiet", "--save-traj", str(traj)],
+         "--device", "cpu", "--quiet", "--save-traj", str(traj),
+         "--checkpoint", str(tmp_path / "ck.npz")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "loop closure is not ported yet" in out.stdout
+    assert "loop_closures=0" in out.stdout and " lc=" in out.stdout
+    assert "not ported" not in out.stdout
     grid = np.load(tmp_path / "map.npy")
     assert grid.ndim == 2 and np.isfinite(grid).all() and (grid != 0.5).any()
     assert np.load(traj).shape[1:] == (3, 3)
     assert (tmp_path / "map.csv").exists()
+    ck = np.load(tmp_path / "ck.npz")
+    assert ck["poses"].shape[0] == np.load(traj).shape[0] + 1
+    assert ck["stats_scans"][0] == 7
+    # --resume: the engine restarts from the checkpoint and streams the
+    # same 8 scans again after it
+    out = subprocess.run(
+        [sys.executable, "-m", "icp_tpu_torch.cli", "--config", str(cfg),
+         "--device", "cpu", "--quiet", "--resume", str(tmp_path / "ck.npz")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "scans=15 " in out.stdout
 
 
 def test_jax_stays_on_cpu():
