@@ -7,7 +7,8 @@ Phases (any failed check ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from icp_tpu_torch/csrc with nvcc;
   3. hold each kernel against its plain torch version on the card at the
-     shapes of both paths (plus ragged and tie cases), and icp_core with
+     shapes of every path (plus ragged and tie cases; nn_min_cuda also at
+     the no-IMU submap sweep's coarse and fine shapes), and icp_core with
      the kernel against icp_core with the plain query;
   4. drive the main path: the 200-scan x 720-beam bench sequence through
      SlamEngine (first scan, then batches of 16, finish, sync_map) with
@@ -15,16 +16,31 @@ Phases (any failed check ends the run with a non-zero exit code):
      are > 0, the poses and map are finite, and ATE <= 0.050 m;
   5. time a second, warm pass (scans/s) and each kernel against its plain
      version at the paths' shapes (nn_cuda at scan x scan and scan x
-     submap capacity, nn_min_cuda at the loop-closure coarse sweep and the
-     submap fine sweep), by CUDA events around back-to-back calls and by
-     CUDA-graph replays (device time only);
+     submap capacity, nn_min_cuda at the loop-closure coarse sweep, the
+     no-IMU submap coarse sweep and the IMU submap fine sweep), by CUDA
+     events around back-to-back calls and by CUDA-graph replays (device
+     time only);
   6. drive the loop-closure path: the same sequence with bench_suite's
      loop-closure section (first scan, warmup, batches of 16 with rollback
      at accepted closures, finish, sync_map), counters reset just before;
      check >= 1 closure, ATE <= 0.030 m and below phase 4's, finite poses
      and map, and more nn_min_cuda launches than phase 4;
   7. time PoseGraph2D.optimize through the dense and the PCG solve at
-     1024 and 4096 nodes (printed only).
+     1024 and 4096 nodes (printed only);
+  8. drive the features path: the sequence without IMU and with
+     bench_suite's features section (curvature keypoints, descriptors,
+     RANSAC; the submap sweep over +-60 degrees), counters reset just
+     before; check both counters > 0, >= 190 finite poses, a finite
+     non-empty map and ATE <= 0.050 m; print scans/s of a warm pass, the
+     kernel launches per scan and the host-to-device copies per feature
+     extraction (torch.profiler);
+  9. drive loop closure with features.method "both" and IMU (verification
+     by rotation search, feature alignment and ICP); check >= 1 closure,
+     ATE <= 0.030 m and below phase 4's, and nn_cuda launches > 0;
+ 10. drive the modular path (tpu.fused: false) with the features section
+     on the first 48 scans; check both counters > 0, positions within
+     0.01 m of phase 8's over the first 10 poses and submap corrections
+     within 1 of phase 8's over the same scans.
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Imports neither jax nor icp_tpu nor yaml.
 """
@@ -73,6 +89,17 @@ LC_SECTION = {"enabled": True, "distance_threshold": 3.0, "min_interval": 80,
 # LC verification's rotation_search on scan-capacity clouds: 360 / 1.5 =
 # 240 coarse angles and 30 fine angles of 768 rows, against 768 targets
 LC_SWEEP_ROWS = (240 * 768, 30 * 768)
+# benchmarks/bench_suite.py's features section (its "features" row runs it
+# without IMU, submap on, loop closure off)
+FEAT_SECTION = {"method": "features", "rotation_voxel_size": 0.15,
+                "angle_step_coarse": 1.5, "angle_step_fine": 0.1,
+                "voxel_size": 0.1, "k_curvature": 10, "top_n": 100,
+                "min_kp_dist": 0.2, "k_descriptor": 16, "ratio_threshold": 0.8,
+                "ransac_iterations": 512, "inlier_threshold": 0.3,
+                "min_inliers": 4}
+FEAT_ATE_BOUND_M = 0.050  # icp_tpu scores 0.0430 m (no IMU, CPU battery)
+MODULAR_SCANS = 48        # phase 10's depth (scans after the first)
+MIN_POSES = 190           # of the 199 scans after the first
 
 
 def log(*a):
@@ -179,9 +206,21 @@ def nn_cases(rng):
     return cases
 
 
-def check_kernels(dev) -> dict:
+def no_imu_sweep_rows(cfg, src_cap):
+    """Rows of the no-IMU submap sweep's coarse and fine passes: one
+    src_cap cloud per angle of +-rotation_range at rotation_step, and
+    _fine_count(step, fine step) angles around the best."""
+    from icp_tpu_torch.models.prealign import _fine_count
+
+    r, st = cfg.sub_rot_range, cfg.sub_rot_step
+    coarse = len(np.arange(-r, r + st, st))
+    return coarse * src_cap, _fine_count(st, cfg.sub_rot_fine) * src_cap
+
+
+def check_kernels(dev, sweep_shapes) -> dict:
     """Phase 3: each kernel against its plain version; returns the max
-    absolute d2 error per kernel."""
+    absolute d2 error per kernel. ``sweep_shapes``: extra (rows, targets)
+    shapes for nn_min_cuda."""
     from icp_tpu_torch.models.icp import icp_core
     from icp_tpu_torch.ops.hopper import nn_kernel as K
 
@@ -209,11 +248,13 @@ def check_kernels(dev) -> dict:
         err["nn"] = max(err["nn"], e)
         log(f"  nn_cuda {label} {shape}: indices equal, d2 bit-equal")
 
-    # nn_min_cuda: the loop-closure sweeps, the fine sweep's 20 x 768 rows,
-    # ragged rows, all-masked
+    # nn_min_cuda: the loop-closure sweeps, the no-IMU submap sweeps, the
+    # fine sweep's 20 x 768 rows, ragged rows, all-masked
     for rows, tgt, msk in [
             *[(_cloud(rng, r), _cloud(rng, 768), rng.random(768) < 0.9)
               for r in LC_SWEEP_ROWS],
+            *[(_cloud(rng, r), _cloud(rng, m), rng.random(m) < 0.9)
+              for r, m in sweep_shapes],
             (_cloud(rng, 20 * 768), _cloud(rng, 4096), rng.random(4096) < 0.9),
             (_cloud(rng, 13 * 700 + 3), _cloud(rng, 4000), rng.random(4000) < 0.9),
             (_cloud(rng, 300), _cloud(rng, 1000), np.zeros(1000, bool))]:
@@ -250,7 +291,7 @@ def check_kernels(dev) -> dict:
 
 
 def time_kernels(dev, scan_cap, submap_cap, sweep_src_cap, sweep_tgt_cap,
-                 card) -> dict:
+                 no_imu_rows, card) -> dict:
     """Each kernel against its plain version at the main path's shapes, in
     turns (plain, kernel, kernel, plain) by both measures: CUDA events
     around 100 back-to-back calls (the host's launch gaps count) and
@@ -270,6 +311,10 @@ def time_kernels(dev, scan_cap, submap_cap, sweep_src_cap, sweep_tgt_cap,
                  (t(_cloud(rng, LC_SWEEP_ROWS[0])), t(_cloud(rng, scan_cap)),
                   t(rng.random(scan_cap) < 0.9)),
                  f"{LC_SWEEP_ROWS[0]}x{scan_cap}"))
+    runs.append(("nn_min", K.nn_min_cuda, K.nn_min_plain,
+                 (t(_cloud(rng, no_imu_rows)), t(_cloud(rng, sweep_tgt_cap)),
+                  t(rng.random(sweep_tgt_cap) < 0.9)),
+                 f"{no_imu_rows}x{sweep_tgt_cap}"))
     runs.append(("nn_min", K.nn_min_cuda, K.nn_min_plain,
                  (t(_cloud(rng, 20 * sweep_src_cap)), t(_cloud(rng, sweep_tgt_cap)),
                   t(rng.random(sweep_tgt_cap) < 0.9)),
@@ -311,8 +356,9 @@ def load_sequence(td):
     return gt, scans, rels, IMUService(imu_csv)
 
 
-def run_engine(cfg, imu, scans, rels, dev, warmup=False):
-    """A path as a user drives it; returns (engine, seconds)."""
+def run_engine(cfg, imu, scans, rels, dev, warmup=False, probe=None):
+    """A path as a user drives it; returns (engine, seconds). ``probe(eng)``
+    runs after each batch."""
     from icp_tpu_torch.engine import SlamEngine
 
     eng = SlamEngine(cfg, imu=imu, verbose=False, device=dev)
@@ -322,6 +368,8 @@ def run_engine(cfg, imu, scans, rels, dev, warmup=False):
         eng.warmup()
     for k in range(1, len(scans), BATCH):
         eng.process_scans_batched(scans[k:k + BATCH], rels[k:k + BATCH])
+        if probe is not None:
+            probe(eng)
     eng.finish()
     eng.sync_map()
     torch.cuda.synchronize()
@@ -380,11 +428,151 @@ def time_pose_graph(dev, card) -> dict:
     return out
 
 
+def profile_counts(fn, n):
+    """{launches, h2d, d2h} per call of fn() over n calls: kernel launches
+    and host-to-device / device-to-host copies, from torch.profiler's CUDA
+    runtime and memcpy events; None for a count the profiler did not
+    record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    launches = sum(nm.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                   for nm in names)
+    copies = any(nm.startswith("cudaMemcpy") for nm in names)
+    h2d = sum("HtoD" in nm for nm in names)
+    d2h = sum("DtoH" in nm for nm in names)
+    return {"launches": launches / n if launches else None,
+            "h2d": h2d / n if (h2d or copies) else None,
+            "d2h": d2h / n if (d2h or copies) else None}
+
+
+def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
+                    ate_m) -> dict:
+    """Phases 8-10: the features path, loop closure with "both", and the
+    modular path. Returns the kernels' launch counts per path."""
+    from icp_tpu_torch.engine import _pad_fixed
+    from icp_tpu_torch.models.features import extract_features
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+
+    n_steps = len(scans) - 1
+    launches = {}
+
+    # ── 8. the features path (no IMU) ────────────────────────────────────
+    feat_dict = dict(BENCH_CFG, imu={"enabled": False}, features=FEAT_SECTION)
+    feat_cfg = SlamConfig.from_dict(feat_dict)
+    # (scans bookkept, submap corrections) after each batch: phase 10
+    # reads the corrections over its first MODULAR_SCANS scans
+    progress = []
+    K.reset_launch_counts()
+    eng_f, wall_f = run_engine(
+        feat_cfg, None, scans, rels, dev,
+        probe=lambda e: progress.append((e.stats.scans,
+                                         e.stats.submap_corrections)))
+    launches["features"] = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    traj_f = np.stack(eng_f.pose_trajectory)
+    lo_f = eng_f.mapper.log_odds
+    ate_f = ate(traj_f[:, :2, 2], gt, indices=eng_f.pose_scan_indices)
+    lf = launches["features"]
+    log(f"features path: {len(traj_f)} poses, "
+        f"{eng_f.stats.submap_corrections} submap corrections, "
+        f"{eng_f.stats.rejected} rejected, {eng_f.stats.icp_iters} ICP "
+        f"iterations, {wall_f:.2f} s cold; launches {lf}, per scan "
+        f"nn {lf['nn'] / n_steps:.2f} nn_min {lf['nn_min'] / n_steps:.2f}; "
+        f"sweep caps {eng_f._sweep_caps}, dropped voxels "
+        f"{eng_f.stats.sweep_dropped_voxels}; on {card}")
+    log(f"features ATE {ate_f:.4f} m over {len(traj_f)} poses (bound "
+        f"{FEAT_ATE_BOUND_M} m; IMU path {ate_m:.4f} m)")
+    assert lf["nn"] > 0 and lf["nn_min"] > 0, lf
+    assert np.isfinite(traj_f).all(), "non-finite pose (features)"
+    assert len(traj_f) >= MIN_POSES, f"only {len(traj_f)} poses (features)"
+    assert bool(torch.isfinite(lo_f).all()), "non-finite map (features)"
+    assert int((lo_f != 0).sum()) > 0, "empty map (features)"
+    assert ate_f <= FEAT_ATE_BOUND_M, \
+        f"features ATE {ate_f:.4f} m > {FEAT_ATE_BOUND_M} m"
+
+    _, wall_f2 = run_engine(feat_cfg, None, scans, rels, dev)
+    log(f"features scans/s (warm pass): {n_steps / wall_f2:.2f} "
+        f"({wall_f2:.2f} s; cold pass {n_steps / wall_f:.2f}) on {card}")
+    kw = {k: FEAT_SECTION[k] for k in ("k_curvature", "top_n", "min_kp_dist",
+                                       "k_descriptor")}
+    kw["voxel_size"] = FEAT_SECTION["voxel_size"]
+    p, m = (torch.as_tensor(a, device=dev)
+            for a in _pad_fixed(scans[1], feat_cfg.scan_capacity))
+    extract_ms = time_ms(lambda: extract_features(p, m, **kw), iters=20)
+    log(f"feature extraction (one per scan on this path): {extract_ms:.3f} ms "
+        f"by CUDA events on {card}")
+
+    # ── 9. loop closure with features.method "both" (IMU on) ─────────────
+    both_cfg = SlamConfig.from_dict(dict(
+        BENCH_CFG, loop_closure=LC_SECTION,
+        features=dict(FEAT_SECTION, method="both")))
+    both_cfg.num_scans = len(scans)
+    K.reset_launch_counts()
+    eng_b, wall_b = run_engine(both_cfg, imu, scans, rels, dev, warmup=True)
+    launches["lc_both"] = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    s = eng_b.stats
+    traj_b = np.stack(eng_b.pose_trajectory)
+    ate_b = ate(traj_b[:, :2, 2], gt, indices=eng_b.pose_scan_indices)
+    log(f"loop closure with 'both': loop_closures={s.loop_closures} "
+        f"lc_checks={s.lc_checks} lc_pairs={s.lc_pairs} "
+        f"lc_requeued_scans={s.lc_requeued_scans} "
+        f"wall_lc_verify={s.wall_lc_verify:.3f} s "
+        f"wall_loop_closure={s.wall_loop_closure:.3f} s; "
+        f"{n_steps / wall_b:.2f} scans/s ({wall_b:.2f} s, warmup included) "
+        f"on {card}; launches {launches['lc_both']}")
+    log(f"'both' loop-closure ATE {ate_b:.4f} m over {len(traj_b)} poses "
+        f"(bound {LC_ATE_BOUND_M} m; without loop closure {ate_m:.4f} m)")
+    assert s.loop_closures >= 1, "no loop closure accepted ('both')"
+    assert np.isfinite(traj_b).all(), "non-finite pose ('both')"
+    assert ate_b <= LC_ATE_BOUND_M, f"'both' ATE {ate_b:.4f} m > {LC_ATE_BOUND_M} m"
+    assert ate_b < ate_m, f"'both' ATE {ate_b:.4f} m >= no-LC ATE {ate_m:.4f} m"
+    assert launches["lc_both"]["nn"] > 0, launches["lc_both"]
+
+    # ── 10. the modular path (tpu.fused: false), features, cut depth ─────
+    mod_cfg = SlamConfig.from_dict(dict(
+        feat_dict, tpu=dict(BENCH_CFG["tpu"], fused=False)))
+    n_mod = MODULAR_SCANS + 1
+    K.reset_launch_counts()
+    eng_m, wall_m = run_engine(mod_cfg, None, scans[:n_mod], rels[:n_mod], dev)
+    launches["modular"] = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    traj_m = np.stack(eng_m.pose_trajectory)
+    gap = float(np.abs(traj_m[:10, :2, 2] - traj_f[:10, :2, 2]).max())
+    sub_f = dict(progress).get(MODULAR_SCANS)
+    log(f"modular path: {len(traj_m)} poses over {MODULAR_SCANS} scans, "
+        f"{eng_m.stats.submap_corrections} submap corrections (fused path "
+        f"over the same scans: {sub_f}), {n_mod - 1} scans in {wall_m:.2f} s "
+        f"({(n_mod - 1) / wall_m:.2f} scans/s) on {card}; max |position - "
+        f"fused| over the first 10 poses {gap:.4g} m; launches "
+        f"{launches['modular']}")
+    assert eng_m._state is None, "the modular run built a fused state"
+    assert launches["modular"]["nn"] > 0 and launches["modular"]["nn_min"] > 0, \
+        launches["modular"]
+    assert np.isfinite(traj_m).all(), "non-finite pose (modular)"
+    assert gap <= 0.01, f"modular vs fused positions {gap:.4g} m > 0.01 m"
+    assert sub_f is not None and abs(eng_m.stats.submap_corrections - sub_f) <= 1, \
+        (eng_m.stats.submap_corrections, sub_f)
+
+    # profiled last: passes run after a torch.profiler window are slower
+    # (phase 9's pass: 9.96 against 15.83 scans/s on an H100 80GB HBM3)
+    counts = profile_counts(lambda: extract_features(p, m, **kw), 5)
+    log(f"feature extraction, per call: {counts['launches']} kernel "
+        f"launches, {counts['h2d']} host-to-device and {counts['d2h']} "
+        f"device-to-host copies (torch.profiler) on {card}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke test needs a CUDA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from icp_tpu_torch.engine import SlamEngine
     from icp_tpu_torch.ops.hopper import build
     from icp_tpu_torch.ops.hopper import nn_kernel as K
     from icp_tpu_torch.utils.config import SlamConfig
@@ -406,16 +594,21 @@ def main():
             log(f"  ptxas: {line.strip()}")
 
     # ── 3. kernels against their plain versions ──────────────────────────
-    log("kernel checks:")
-    err = check_kernels(dev)
-
-    # ── 4. the main path ─────────────────────────────────────────────────
     with tempfile.TemporaryDirectory() as td:
         gt, scans, rels, imu = load_sequence(td)
     log(f"sequence: {len(scans)} scans, mean "
         f"{np.mean([len(s) for s in scans]):.0f} points")
     cfg = SlamConfig.from_dict(BENCH_CFG)
+    # the sweep caps every path sizes from the first scan
+    probe_eng = SlamEngine(cfg, verbose=False, device=dev)
+    probe_eng._resolve_sweep_caps(scans[0])
+    src_cap, tgt_cap = probe_eng._sweep_caps
+    no_imu_rows = no_imu_sweep_rows(cfg, src_cap)
+    log(f"kernel checks (sweep caps {src_cap}, {tgt_cap}; no-IMU submap "
+        f"sweep rows {no_imu_rows[0]} coarse, {no_imu_rows[1]} fine):")
+    err = check_kernels(dev, [(r, tgt_cap) for r in no_imu_rows])
 
+    # ── 4. the main path ─────────────────────────────────────────────────
     K.reset_launch_counts()
     eng, wall1 = run_engine(cfg, imu, scans, rels, dev)
     launches = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
@@ -426,7 +619,7 @@ def main():
     assert launches["nn"] > 0 and launches["nn_min"] > 0, launches
     traj = np.stack(eng.pose_trajectory)
     assert np.isfinite(traj).all(), "non-finite pose"
-    assert len(traj) >= 190, f"only {len(traj)} poses"
+    assert len(traj) >= MIN_POSES, f"only {len(traj)} poses"
     lo = eng.mapper.log_odds
     assert bool(torch.isfinite(lo).all()), "non-finite map"
     n_cells = int((lo != 0).sum())
@@ -445,8 +638,9 @@ def main():
         f"on {card}; warm-pass max |pose diff| vs cold "
         f"{float(np.abs(traj2 - traj).max()) if traj2.shape == traj.shape else 'n/a'}")
 
+    assert eng._sweep_caps == (src_cap, tgt_cap), eng._sweep_caps
     timings = time_kernels(dev, cfg.scan_capacity, cfg.submap_capacity,
-                           *eng._sweep_caps, card)
+                           src_cap, tgt_cap, no_imu_rows[0], card)
 
     # ── 6. the loop-closure path ─────────────────────────────────────────
     lc_dict = dict(BENCH_CFG, loop_closure=LC_SECTION)
@@ -480,6 +674,10 @@ def main():
 
     # ── 7. pose-graph solve timings ──────────────────────────────────────
     time_pose_graph(dev, card)
+
+    # ── 8-10. the features path, "both" with loop closure, modular ───────
+    launches_feat = features_phases(SlamConfig, ate, dev, card, gt, scans,
+                                    rels, imu, ate_m)
     kernels = []
     for name, key, line in (("nn_cuda", "nn", 30), ("nn_min_cuda", "nn_min", 64)):
         shapes = timings[key]
@@ -490,7 +688,9 @@ def main():
             "replaces": f"icp_tpu/ops/pallas/nn_kernel.py:{line}",
             "launches": launches[key],
             "launches_by_path": {"main": launches[key],
-                                 "loop_closure": launches_lc[key]},
+                                 "loop_closure": launches_lc[key],
+                                 **{path: n[key]
+                                    for path, n in launches_feat.items()}},
             "max_abs_err": err[key],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "device_ms": top["device_ms"],

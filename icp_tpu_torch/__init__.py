@@ -8,15 +8,16 @@ CUDA kernels for Hopper (``csrc/nn_kernel.cu``, bound in
 torch here.
 
 Layout:
-  ops/       masked tensor ops (NN, voxel, eig2x2, rigid solves, sweeps,
-             raytrace) + ops/hopper (CUDA kernels, their build and bindings)
-  models/    ICP, pre-alignment, occupancy grid (with replay), SE(2) pose
-             graph, fused SLAM step
+  ops/       masked tensor ops (NN, voxel, eig2x2, rigid solves, RANSAC,
+             sweeps, raytrace) + ops/hopper (CUDA kernels, their build and
+             bindings)
+  models/    ICP, pre-alignment (rotation search, features/RANSAC),
+             occupancy grid (with replay), SE(2) pose graph, fused SLAM step
   parallel/  the single-device matrix-free PCG pose-graph solve
   services/  lidar/IMU CSV ingestion (numpy)
   utils/     SE(2) transforms, masking, config, synthetic data, metrics
-  engine.py  streaming SLAM engine (fused batched path, loop closure,
-             checkpoints)
+  engine.py  streaming SLAM engine (fused batched path, modular path, loop
+             closure, checkpoints)
   cli.py     command-line entry
 
 This package never imports jax.

@@ -1,12 +1,16 @@
-"""Streaming SLAM engine (counterpart of icp_tpu.engine, fused path).
+"""Streaming SLAM engine (counterpart of icp_tpu.engine).
 
 The host owns I/O, the scan history, the pose graph and the bookkeeping of
-step results; every per-scan computation runs on ``device`` through the
-fused step of models/slam_step.py. The first scan initialises the grid
-bounds, the ray bound and the sweep caps, paints the grid through
-``OccupancyGrid2D.update_scan`` and builds the fused state, which aliases
-the grid. Later scans go through ``process_scan`` (one at a time) or
-``process_scans_batched`` (B at a time, map painted once per batch).
+step results; every per-scan computation runs on ``device``. The first scan
+initialises the grid bounds, the ray bound and the sweep caps and paints
+the grid through ``OccupancyGrid2D.update_scan``. With ``tpu.fused: true``
+it then builds the fused state of models/slam_step.py, which aliases the
+grid, and later scans go through ``process_scan`` (one at a time) or
+``process_scans_batched`` (B at a time, map painted once per batch). With
+``tpu.fused: false`` every scan takes the modular path, icp_tpu's
+reference-shaped pipeline of separate calls: ``_run_icp_pair`` (the
+registration front end with its pre-alignment), ``_attempt_submap_icp``
+against the host-side ``submap_buffer``, and a map paint per scan.
 
 Loop closure (reference slam.py:565-620) follows icp_tpu: candidate gates
 on node positions, verification of each (node, candidate) pair by rotation
@@ -18,9 +22,14 @@ accepted closure (``_process_scans_lc``). ``save_checkpoint`` /
 ``load_checkpoint`` use icp_tpu's npz keys, so a checkpoint of either
 package loads into the other.
 
-Not ported yet (ROADMAP Queue 1): the modular non-fused path (``fused:
-false``), the device mesh (``distributed: true``), features/RANSAC
-alignment in loop-closure verification, and the live map view.
+Pre-alignment without IMU is a rotation search, feature alignment
+(curvature keypoints, descriptors, RANSAC), both, or none, on both paths and
+in loop-closure verification. RANSAC draws from ``torch.Generator``
+streams seeded as icp_tpu seeds its PRNG keys: the fused state's, and the
+engine's own (``_gen``) for the modular path and verification.
+
+Not ported yet (ROADMAP Queue 1): the device mesh (``distributed: true``)
+and the live map view.
 """
 from __future__ import annotations
 
@@ -30,14 +39,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from icp_tpu_torch.models.features import feature_based_alignment
 from icp_tpu_torch.models.icp import icp
 from icp_tpu_torch.models.occupancy import OccupancyGrid2D
 from icp_tpu_torch.models.pose_graph import PoseGraph2D
-from icp_tpu_torch.models.prealign import rotation_search
-from icp_tpu_torch.models.slam_step import SlamState, init_state, make_slam_step
+from icp_tpu_torch.models.prealign import rotation_search, submap_rotation_search
+from icp_tpu_torch.models.slam_step import (SlamState, blank_feat_state,
+                                            init_state, make_generator,
+                                            make_slam_step)
+from icp_tpu_torch.ops.voxel import voxel_downsample_fixed
 from icp_tpu_torch.services.imu import IMUService
 from icp_tpu_torch.services.lidar import LidarService
 from icp_tpu_torch.utils.config import SlamConfig
+from icp_tpu_torch.utils.masking import next_pow2
 from icp_tpu_torch.utils.se2 import pose_to_vec_np
 
 
@@ -121,14 +135,6 @@ class SlamEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SlamEngine(device='cuda') but CUDA is not "
                                "available; pass device='cpu' explicitly")
-        if cfg.lc_enabled and cfg.alignment_method in ("features", "both"):
-            raise NotImplementedError(
-                f"loop-closure verification with features.method "
-                f"{cfg.alignment_method!r} runs feature/RANSAC alignment, "
-                f"which is not ported yet (ROADMAP Queue 1 item 2: features)")
-        if not cfg.fused:
-            raise NotImplementedError(
-                "only the fused path is ported (tpu.fused: true)")
         if cfg.distributed is True:
             raise NotImplementedError(
                 "tpu.distributed: true is not ported yet (ROADMAP Queue 1: "
@@ -143,13 +149,22 @@ class SlamEngine:
         self.prev_points: np.ndarray | None = None
         self.prev_rel_time = None
         self.mapper: OccupancyGrid2D | None = None
+        self.submap_buffer: list[np.ndarray] = []   # modular path: global scans
         self.pose_graph = PoseGraph2D(self.device)
         self.pose_graph.robust_phi = float(cfg.lc_robust_phi)
         self.imu_yaw_offset = 0.0
         self.stats = SlamStats()
+        # RANSAC stream of the modular path and of verification
+        self._gen = make_generator(cfg.ransac_iterations, self.device)
 
         self._cap = cfg.scan_capacity
         self._sub_cap = cfg.submap_capacity
+        # shapes of the fused features-mode cache (SlamState.feat)
+        self._feat_shapes = (
+            (int(cfg.top_n), int(cfg.k_descriptor))
+            if (cfg.alignment_method == "features" and imu is None)
+            else None
+        )
         self._step_fn = None
         self._batch_fn = None
         self._state: SlamState | None = None
@@ -250,6 +265,104 @@ class SlamEngine:
                       f"{self._ray_bound} ({rmax:.1f} m); free-space "
                       f"marking truncated (counted in stats)")
 
+    # ── modular path: registration front end (reference slam.py:53-98) ──
+    def _prealign(self, sp, sm, tp, tm):
+        """Initial (R, t) of source onto target by the configured method:
+        rotation search, then (features, both) feature alignment on the
+        pre-rotated source, composed when it finds min_inliers inliers
+        (reference slam.py:68-88). "none" gives (I, 0)."""
+        cfg = self.cfg
+        method = cfg.alignment_method
+        R0 = torch.eye(2, dtype=torch.float32, device=self.device)
+        t0 = torch.zeros(2, dtype=torch.float32, device=self.device)
+        if method in ("rotation_search", "both"):
+            R0, t0, _ = rotation_search(
+                sp, sm, tp, tm,
+                voxel_size=cfg.rotation_voxel_size,
+                angle_step_coarse=float(cfg.angle_step_coarse),
+                angle_step_fine=float(cfg.angle_step_fine),
+            )
+        if method in ("features", "both"):
+            R_f, t_f, n_in = feature_based_alignment(
+                sp @ R0.T + t0, sm, tp, tm, self._gen,
+                voxel_size=cfg.feat_voxel, k_curvature=int(cfg.k_curvature),
+                top_n=int(cfg.top_n), min_kp_dist=cfg.min_kp_dist,
+                k_descriptor=int(cfg.k_descriptor),
+                ratio_threshold=cfg.ratio_threshold,
+                ransac_iterations=int(cfg.ransac_iterations),
+                inlier_threshold=cfg.inlier_threshold)
+            ok = n_in >= int(cfg.min_inliers)
+            R0 = torch.where(ok, R_f @ R0, R0)
+            t0 = torch.where(ok, t0 @ R_f.T + t_f, t0)
+        return R0, t0
+
+    def _run_icp_pair(self, source: np.ndarray, target: np.ndarray):
+        """Pre-alignment + ICP of one scan pair; returns (R, t, err) on the
+        host and counts the ICP's iterations."""
+        cfg = self.cfg
+        sp, sm = self._to_device(*_pad_fixed(source, self._cap))
+        tp, tm = self._to_device(*_pad_fixed(target, self._cap))
+        R0, t0 = self._prealign(sp, sm, tp, tm)
+        res = icp(
+            sp, sm, tp, tm, R0, t0,
+            voxel_size=cfg.icp_voxel,
+            method=cfg.icp_method,
+            max_iterations=int(cfg.icp_max_iterations),
+            normal_k=int(cfg.icp_normal_k),
+            error_threshold=cfg.icp_error_threshold,
+            nn_impl=str(cfg.nn_impl),
+        )
+        self.stats.icp_iters += int(res.iters)
+        return res.R.cpu().numpy(), res.t.cpu().numpy(), float(res.error)
+
+    # ── modular path: submap (reference slam.py:103-225) ─────────────────
+    def _build_submap(self):
+        """Voxel-merged submap of ``submap_buffer`` on the device, at most
+        ``submap_capacity`` voxels."""
+        combined = np.concatenate(self.submap_buffer, axis=0)
+        cap = min(next_pow2(combined.shape[0]), self._sub_cap * 4)
+        pts, mask = self._to_device(*_pad_fixed(combined, cap))
+        return voxel_downsample_fixed(pts, mask, self.cfg.submap_voxel,
+                                      self._sub_cap)
+
+    def _attempt_submap_icp(self, points: np.ndarray, predicted: np.ndarray,
+                            imu_yaw):
+        """Submap rotation sweep around ``predicted`` (its yaw replaced by
+        the IMU's when given, with the narrow range), then gated
+        point-to-point ICP against the submap; returns (R, t, err)."""
+        cfg = self.cfg
+        sub_pts, sub_mask = self._build_submap()
+        sp, sm = self._to_device(*_pad_fixed(points, self._cap))
+        pred = predicted.copy()
+        if imu_yaw is not None:
+            c, s = np.cos(imu_yaw), np.sin(imu_yaw)
+            pred[:2, :2] = [[c, -s], [s, c]]
+            angle_range, angle_step = cfg.imu_narrow, 0.5
+        else:
+            angle_range, angle_step = cfg.sub_rot_range, cfg.sub_rot_step
+        R0, t0, s_drop, t_drop = submap_rotation_search(
+            sp, sm, sub_pts, sub_mask, self._to_device(pred)[0],
+            angle_range=float(angle_range),
+            angle_step=float(angle_step),
+            fine_step=float(cfg.sub_rot_fine),
+            voxel_size=cfg.sub_rot_voxel,
+            src_cap=self._sweep_caps[0], tgt_cap=self._sweep_caps[1],
+            with_overflow=True,
+        )
+        self._check_sweep_drop(int(s_drop) + int(t_drop))
+        res = icp(
+            sp, sm, sub_pts, sub_mask, R0, t0,
+            voxel_size=cfg.icp_voxel,
+            method="point_to_point",
+            max_iterations=int(cfg.icp_max_iterations),
+            error_threshold=cfg.icp_error_threshold,
+            max_corr_dist=cfg.sub_corr_dist,
+            use_gate=True,
+            nn_impl=str(cfg.nn_impl),
+        )
+        self.stats.icp_iters += int(res.iters)
+        return res.R.cpu().numpy(), res.t.cpu().numpy(), float(res.error)
+
     # ── loop closure (reference slam.py:231-268, 565-620) ────────────────
     def _find_loop_candidates(self, cur_idx: int, cur_xy=None):
         """Candidate gates of node ``cur_idx`` at the current position
@@ -308,9 +421,10 @@ class SlamEngine:
 
         ``pairs``: [(src_points, cand_points)] raw sensor-frame host
         arrays. Returns [(R, t, err, iters)] in pair order. Each pair is
-        padded to the scan capacity and registered on the device by
-        rotation search (features.method "rotation_search") + ICP, as one
-        lane of icp_tpu's vmapped verifier computes it; verification is
+        padded to the scan capacity and registered on the device by the
+        configured pre-alignment (``_prealign``: rotation search and/or
+        feature alignment) + ICP, as one lane of icp_tpu's vmapped verifier
+        computes it; verification is
         pose-independent, which is what lets the batched path verify a
         whole chunk before its arbitration. Pairs run one after another;
         every result is read after the last pair is queued. The groups of
@@ -322,21 +436,11 @@ class SlamEngine:
         L = max(int(cfg.lc_max_candidates), 1)
         L = 1 << (L - 1).bit_length()
         self.stats.lc_groups += -(-len(pairs) // L)
-        f32 = torch.float32
         res = []
         for src, cand in pairs:
             sp, sm = self._to_device(*_pad_fixed(src, cap))
             cp, cm = self._to_device(*_pad_fixed(cand, cap))
-            if cfg.alignment_method == "rotation_search":
-                R0, t0, _ = rotation_search(
-                    sp, sm, cp, cm,
-                    voxel_size=cfg.rotation_voxel_size,
-                    angle_step_coarse=float(cfg.angle_step_coarse),
-                    angle_step_fine=float(cfg.angle_step_fine),
-                )
-            else:
-                R0 = torch.eye(2, dtype=f32, device=self.device)
-                t0 = torch.zeros(2, dtype=f32, device=self.device)
+            R0, t0 = self._prealign(sp, sm, cp, cm)
             res.append(icp(
                 sp, sm, cp, cm, R0, t0,
                 voxel_size=cfg.icp_voxel,
@@ -412,6 +516,11 @@ class SlamEngine:
             rec.pose = corrected[k]
         self.global_pose = corrected[len(self.scan_history) - 1].copy()
         self.pose_trajectory = [r.pose for r in self.scan_history[1:]]
+        if cfg.submap_enabled:
+            self.submap_buffer = [
+                rec.points @ rec.pose[:2, :2].T + rec.pose[:2, 2]
+                for rec in self.scan_history[-cfg.submap_size:]
+            ]
         if self.mapper is not None:
             # registration never reads the grid, and the replay repaints
             # every keyframe over a zeroed grid, so replaying at the next
@@ -433,7 +542,8 @@ class SlamEngine:
         """Rebuild the fused state from the corrected history: the ring from
         the last submap_size keyframes at their new poses, prev from
         ``points_2d``. The grid stays the live one (its replay is
-        deferred)."""
+        deferred), the RANSAC stream goes on, and the features cache is
+        invalidated (the next step extracts prev's features afresh)."""
         cfg = self.cfg
         K = max(int(cfg.submap_size), 1)
         cap = self._cap
@@ -446,12 +556,15 @@ class SlamEngine:
         sp, sm = self._to_device(*_pad_fixed(points_2d, cap))
         rp, rm, gpose = self._to_device(ring_pts, ring_mask,
                                         self.global_pose.astype(np.float32))
+        feat, feat_valid = blank_feat_state(cap, self._feat_shapes,
+                                            self.device)
         self._state = SlamState(
             prev_pts=sp, prev_mask=sm, global_pose=gpose,
             ring_pts=rp, ring_mask=rm,
             ring_idx=torch.tensor(len(recent), dtype=torch.int32,
                                   device=self.device),
             log_odds=self._state.log_odds,
+            feat=feat, feat_valid=feat_valid, gen=self._state.gen,
         )
 
     # ── fused path (models/slam_step.py) ─────────────────────────────────
@@ -470,6 +583,15 @@ class SlamEngine:
             rotation_voxel_size=float(cfg.rotation_voxel_size),
             angle_step_coarse=float(cfg.angle_step_coarse),
             angle_step_fine=float(cfg.angle_step_fine),
+            feat_voxel=float(cfg.feat_voxel),
+            k_curvature=int(cfg.k_curvature),
+            top_n=int(cfg.top_n),
+            min_kp_dist=float(cfg.min_kp_dist),
+            k_descriptor=int(cfg.k_descriptor),
+            ratio_threshold=float(cfg.ratio_threshold),
+            ransac_iterations=int(cfg.ransac_iterations),
+            inlier_threshold=float(cfg.inlier_threshold),
+            min_inliers=int(cfg.min_inliers),
             submap_enabled=bool(cfg.submap_enabled),
             submap_voxel=float(cfg.submap_voxel),
             submap_capacity=int(cfg.submap_capacity),
@@ -492,27 +614,34 @@ class SlamEngine:
         sp, sm = self._to_device(*_pad_fixed(first_points, self._cap))
         # the state aliases the mapper's grid: paints land in mapper.log_odds
         self._state = init_state(sp, sm, m.log_odds,
-                                 max(int(cfg.submap_size), 1))
+                                 max(int(cfg.submap_size), 1),
+                                 seed=int(cfg.ransac_iterations),
+                                 feat_shapes=self._feat_shapes)
 
     def _to_device(self, *arrays):
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
 
     def sync_map(self):
-        """Bring the mapper up to date with the device grid (for export).
+        """Bring the mapper up to date (for export).
 
         The fused state paints its grid in place and the mapper aliases it,
-        so without a closure this copies nothing. If a closure marked the
-        map dirty, the history is replayed at the corrected poses into a
-        new grid first, and the fused state takes that grid, so later
-        paints continue from it (the reference's rebuild, slam.py:271-277,
-        deferred to this read)."""
-        if self._state is None or self.mapper is None:
+        and the modular path paints the mapper itself, so without a closure
+        this copies nothing. If a closure marked the map dirty, the history
+        is replayed at the corrected poses into a new grid first (the
+        reference's rebuild, slam.py:271-277, deferred to this read), and
+        the fused state takes that grid, so later paints continue from it.
+        The modular path replays too: icp_tpu's ``sync_map`` returns
+        before its dirty check there (``_state`` is None), so its modular
+        map keeps the paints at the pre-closure poses."""
+        if self.mapper is None:
             return
         if self._map_dirty:
             self._rebuild_map()
             self._map_dirty = False
-            self._state = self._state._replace(log_odds=self.mapper.log_odds)
-        else:
+            if self._state is not None:
+                self._state = self._state._replace(
+                    log_odds=self.mapper.log_odds)
+        elif self._state is not None:
             self.mapper.log_odds = self._state.log_odds
 
     def _bookkeep_fused(self, points_2d, out_pose, out_error, out_accepted,
@@ -735,21 +864,28 @@ class SlamEngine:
         """Fused batch path: B scans through one ``batch`` call. Results are
         bookkept one call later (``_drain_pending``) or at ``finish()``;
         with loop closure, chunks run optimistically with rollback at
-        accepted closures (``_process_scans_lc``). Returns the number of
-        accepted scans bookkept by this call."""
-        if self.cfg.lc_enabled and self._state is not None:
+        accepted closures (``_process_scans_lc``). Before the first scan
+        and on the modular path the scans go through ``process_scan`` one
+        by one. Returns the number of accepted scans bookkept by this
+        call."""
+        if self._state is None:
+            return sum(bool(self.process_scan(p, r))
+                       for p, r in zip(scans, rel_times))
+        if self.cfg.lc_enabled:
             return self._process_scans_lc(scans, rel_times)
         return self._dispatch_batch(scans, rel_times)
 
     def _pack_batch(self, scans: list, rel_times: list, prev_rel):
         """Pack B scans + their IMU lookups into fixed-shape host arrays
-        (each scan padded to the scan capacity, padding masked out)."""
+        (each scan padded to the scan capacity, padding masked out), plus
+        which scans are degenerate (fewer than 10 valid points)."""
         B = len(scans)
         cap = self._cap
         pts = np.zeros((B, cap, 2), np.float32)
         msk = np.zeros((B, cap), bool)
         deltas = np.zeros(B, np.float32)
         yaws = np.zeros(B, np.float32)
+        degenerate = []
         for i, p in enumerate(scans):
             self._check_ray_bound(p)
             n = min(p.shape[0], cap)
@@ -757,6 +893,7 @@ class SlamEngine:
             if n > 0:
                 pts[i, n:] = p[0]
             msk[i, :n] = True
+            degenerate.append(n < 10)
         if self.imu is not None and all(r is not None for r in rel_times):
             # one vectorised IMU lookup for the batch: absolute yaws
             # (calibration-offset wrapped, slam.py:456-459) and scan-to-scan
@@ -772,7 +909,7 @@ class SlamEngine:
             if prev_rel is None:
                 d[0] = 0.0
             deltas[:len(scans)] = d
-        return pts, msk, deltas, yaws
+        return (pts, msk, deltas, yaws), degenerate
 
     def _dispatch_chunk_async(self, scans: list, rel_times: list):
         """One fused batch whose results stay on the device until they are
@@ -782,10 +919,11 @@ class SlamEngine:
         no-ops, so the port runs the chunk as it is.)"""
         prev_rel = (self._last_enq_rel if self._last_enq_rel is not None
                     else self.prev_rel_time)
-        arrays = self._pack_batch(scans, rel_times, prev_rel)
+        arrays, degenerate = self._pack_batch(scans, rel_times, prev_rel)
         t0 = time.perf_counter()
         self._state, outs = self._batch_fn(self._state,
-                                           *self._to_device(*arrays))
+                                           *self._to_device(*arrays),
+                                           degenerate=degenerate)
         self._last_enq_rel = rel_times[-1]
         self.stats.wall_registration += time.perf_counter() - t0
         return outs
@@ -828,7 +966,8 @@ class SlamEngine:
         z = torch.zeros((B, cap, 2), dtype=torch.float32, device=self.device)
         m = torch.zeros((B, cap), dtype=torch.bool, device=self.device)
         d = torch.zeros(B, dtype=torch.float32, device=self.device)
-        self._state, _ = self._batch_fn(self._state, z, m, d, d)
+        self._state, _ = self._batch_fn(self._state, z, m, d, d,
+                                        degenerate=[True] * B)
         if self.cfg.lc_enabled:
             self._lc_verify_batched(self.scan_history[0].points, [(0, 0.0)])
             if self.mapper is not None:
@@ -895,6 +1034,7 @@ class SlamEngine:
                          dtype=torch.float32, device=self.device),
             torch.tensor(imu_yaw if imu_yaw is not None else 0.0,
                          dtype=torch.float32, device=self.device),
+            degenerate=min(points_2d.shape[0], self._cap) < 10,
         )
         out = type(out)(*(f.cpu().numpy() for f in out))  # one read per scan
         self._check_sub_saturation(out.sub_n)
@@ -975,7 +1115,10 @@ class SlamEngine:
 
     def load_checkpoint(self, path: str):
         """Restore a state saved by ``save_checkpoint`` (of either package)
-        and rebuild the fused state; streaming resumes after it."""
+        and rebuild the fused state (``tpu.fused: true``); streaming resumes
+        after it. As in icp_tpu, the modular path's ``submap_buffer``
+        starts empty after a resume and refills with the scans that
+        follow."""
         cfg = self.cfg
         d = np.load(path)
         self.global_pose = d["global_pose"].astype(np.float32)
@@ -1033,7 +1176,7 @@ class SlamEngine:
             self.prev_points = self.scan_history[-1].points
             if self._sweep_caps is None:
                 self._resolve_sweep_caps(self.scan_history[0].points)
-            if self.mapper is not None:
+            if self.cfg.fused and self.mapper is not None:
                 self._build_fused(self.scan_history[0].points)
                 self._resync_state_after_lc(self.prev_points)
 
@@ -1073,12 +1216,15 @@ class SlamEngine:
             )
             gp = points_2d @ self.global_pose[:2, :2].T + self.global_pose[:2, 2]
             self.mapper.update_scan(self.global_pose[:2, 2], gp)
+            if cfg.submap_enabled:
+                self.submap_buffer.append(gp.copy())
             self.scan_history.append(
                 ScanRecord(points_2d.copy(), self.global_pose.copy(),
                            scan_idx=0)
             )
             self.pose_graph.add_node(pose_to_vec_np(self.global_pose))
-            self._build_fused(points_2d)
+            if cfg.fused:
+                self._build_fused(points_2d)
             return False
 
         # IMU yaw for this scan (slam.py:455-463)
@@ -1091,8 +1237,121 @@ class SlamEngine:
                 imu_delta = self.imu.delta_yaw(self.prev_rel_time, rel_time_us)
 
         self._check_ray_bound(points_2d)
-        return self._process_scan_fused(points_2d, rel_time_us, imu_yaw,
-                                        imu_delta)
+        if self._state is not None:
+            return self._process_scan_fused(points_2d, rel_time_us, imu_yaw,
+                                            imu_delta)
+        return self._process_scan_modular(points_2d, rel_time_us, imu_yaw,
+                                          imu_delta)
+
+    def _process_scan_modular(self, points_2d, rel_time_us, imu_yaw,
+                              imu_delta) -> bool:
+        """One scan through the modular path (reference slam.py:465-620):
+        odometry ICP, rejection gate, submap correction with its agreement
+        gates, pose-graph node and edge, map paint, submap push, loop
+        closure."""
+        cfg = self.cfg
+        # step 1: scan-to-scan odometry (slam.py:465-483)
+        t0 = time.perf_counter()
+        if imu_delta is not None:
+            c, s = np.cos(imu_delta), np.sin(imu_delta)
+            sp, sm, tp, tm, R0 = self._to_device(
+                *_pad_fixed(self.prev_points, self._cap),
+                *_pad_fixed(points_2d, self._cap),
+                np.array([[c, -s], [s, c]], np.float32))
+            res = icp(
+                sp, sm, tp, tm, R0,
+                torch.zeros(2, dtype=torch.float32, device=self.device),
+                voxel_size=cfg.icp_voxel,
+                method=cfg.icp_method,
+                max_iterations=int(cfg.icp_max_iterations),
+                normal_k=int(cfg.icp_normal_k),
+                error_threshold=cfg.icp_error_threshold,
+            )
+            self.stats.icp_iters += int(res.iters)
+            r_inc, t_inc, err_inc = (res.R.cpu().numpy(), res.t.cpu().numpy(),
+                                     float(res.error))
+        else:
+            r_inc, t_inc, err_inc = self._run_icp_pair(self.prev_points,
+                                                       points_2d)
+
+        if err_inc > cfg.error_reject_threshold:     # (slam.py:485-490)
+            if self.verbose:
+                print(f"Scan {self.stats.scans}: S2S error {err_inc:.6f} "
+                      f"too high, skipping")
+            self.prev_points = points_2d
+            self.prev_rel_time = rel_time_us
+            self.stats.scans += 1
+            self.stats.rejected += 1
+            return False
+
+        T_inv = np.eye(3, dtype=np.float32)
+        T_inv[:2, :2] = r_inc.T
+        T_inv[:2, 2] = -r_inc.T @ t_inc
+        self.global_pose = (self.global_pose @ T_inv).astype(np.float32)
+        error = err_inc
+
+        # step 2: submap drift correction (slam.py:497-536)
+        if cfg.submap_enabled and self.submap_buffer:
+            r_sub, t_sub, err_sub = self._attempt_submap_icp(
+                points_2d, self.global_pose.copy(), imu_yaw)
+            if err_sub <= cfg.error_reject_threshold:
+                pos_diff = float(np.linalg.norm(t_sub - self.global_pose[:2, 2]))
+                sub_yaw = np.arctan2(r_sub[1, 0], r_sub[0, 0])
+                inc_yaw = np.arctan2(self.global_pose[1, 0],
+                                     self.global_pose[0, 0])
+                yaw_diff = abs((sub_yaw - inc_yaw + np.pi) % (2 * np.pi)
+                               - np.pi)
+                if pos_diff < cfg.sub_corr_dist and yaw_diff < np.deg2rad(15.0):
+                    submap_pose = np.eye(3, dtype=np.float32)
+                    submap_pose[:2, :2] = r_sub
+                    submap_pose[:2, 2] = t_sub
+                    self.global_pose = submap_pose
+                    error = err_sub
+                    self.stats.submap_corrections += 1
+                    if self.verbose:
+                        print(f"  Submap correction applied "
+                              f"(dpos={pos_diff:.3f}m, "
+                              f"dyaw={np.degrees(yaw_diff):.1f} deg)")
+        self.stats.wall_registration += time.perf_counter() - t0
+
+        self.pose_trajectory.append(self.global_pose.copy())
+        # pose-graph node + odometry edge (slam.py:542-549)
+        cur_idx = self.pose_graph.add_node(pose_to_vec_np(self.global_pose))
+        z_odom = _relative_vec_np(self.scan_history[cur_idx - 1].pose,
+                                  self.global_pose)
+        self.pose_graph.add_edge(cur_idx - 1, cur_idx, z_odom,
+                                 np.eye(3, dtype=np.float32) / max(error, 1e-6))
+
+        # map + history + submap push (slam.py:551-562)
+        t1 = time.perf_counter()
+        gp = points_2d @ self.global_pose[:2, :2].T + self.global_pose[:2, 2]
+        self.scan_history.append(
+            ScanRecord(points_2d.copy(), self.global_pose.copy(),
+                       scan_idx=self.stats.scans + 1))
+        if self.mapper is not None:
+            self.mapper.update_scan(self.global_pose[:2, 2], gp)
+        if cfg.submap_enabled:
+            self.submap_buffer.append(gp.copy())
+            if len(self.submap_buffer) > cfg.submap_size:
+                self.submap_buffer.pop(0)
+        self.stats.wall_mapping += time.perf_counter() - t1
+
+        # loop closure (slam.py:564-620)
+        if cfg.lc_enabled and cur_idx >= cfg.lc_min_interval:
+            t2 = time.perf_counter()
+            self._try_loop_closure(points_2d, cur_idx)
+            self.stats.wall_loop_closure += time.perf_counter() - t2
+
+        self.prev_points = points_2d
+        self.prev_rel_time = rel_time_us
+        self.stats.scans += 1
+        if self.verbose:
+            pos = self.global_pose[:2, 2]
+            yaw = np.degrees(np.arctan2(self.global_pose[1, 0],
+                                        self.global_pose[0, 0]))
+            print(f"Scan {self.stats.scans:4d}  err={error:.6f}  "
+                  f"pos=({pos[0]:+.3f}, {pos[1]:+.3f})  yaw={yaw:+.2f} deg")
+        return True
 
 
 def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda",

@@ -1,5 +1,6 @@
-"""Batched closed-form 2x2 symmetric eigensolve and normals (counterpart of
-icp_tpu.ops.eig2: ``eigh2x2``, ``_neighbor_cov``, ``estimate_normals``).
+"""Batched closed-form 2x2 symmetric eigensolve, normals and curvature
+(counterpart of icp_tpu.ops.eig2: ``eigh2x2``, ``_neighbor_cov``,
+``estimate_normals``, ``compute_curvature``).
 
 Covariance uses ddof=1 (``np.cov``'s default) over the k+1 nearest
 neighbours, self included.
@@ -73,3 +74,13 @@ def estimate_normals(points, mask, k: int = 10):
     a, b, c, _ = _neighbor_cov(points, mask, k)
     _, _, v = eigh2x2(a, b, c)
     return v
+
+
+def compute_curvature(points, mask, k: int = 10):
+    """PCA curvature lmin / (lmax + 1e-10) in [0, 1] per point. Points with
+    fewer than 3 valid neighbours, and masked points, get 0 (the
+    reference's ``len(nbrs) < 3: continue``)."""
+    a, b, c, cnt = _neighbor_cov(points, mask, k)
+    lmin, lmax, _ = eigh2x2(a, b, c)
+    curv = torch.clamp(lmin, min=0.0) / (lmax + 1e-10)
+    return torch.where((cnt >= 3) & mask, curv, 0.0)

@@ -1,5 +1,5 @@
 """Brute-force nearest neighbours on masked clouds (counterpart of
-icp_tpu.ops.nn: ``pairwise_sqdist`` and ``nn_query``).
+icp_tpu.ops.nn: ``pairwise_sqdist``, ``nn_query`` and ``knn_query``).
 
 All entry points are masked: invalid target slots never win an argmin and
 invalid source slots report +BIG distance. Ties go to the lowest target
@@ -15,17 +15,25 @@ from icp_tpu_torch.utils.masking import BIG, masked_centroid
 
 
 def pairwise_sqdist(a, b, b_mask=None, center=None):
-    """Squared L2 distances between rows of a (N, D) and b (M, D) -> (N, M),
-    for low-D geometry (D <= 4), by broadcast difference (exact in f32, so
-    argmin ties stay stable). Masked columns (b_mask False) are BIG.
-    icp_tpu's D >= 8 expansion form serves the features port.
+    """Squared L2 distances between rows of a (N, D) and b (M, D) -> (N, M).
+    Masked columns (b_mask False) are BIG.
+
+    Low-D geometry (D <= 4) takes the broadcast difference (exact in f32,
+    so argmin ties stay stable); descriptor rows (D > 4) take the expansion
+    ||a||^2 + ||b||^2 - 2 a.b, clamped at 0, as icp_tpu does. Its cross
+    term is one f32 matrix product (TF32 is off package-wide). A row of
+    BIG (1e30) entries squares to inf, so a masked row against a masked
+    column gives inf - inf = NaN before the column mask replaces it.
     """
-    if a.shape[-1] > 4:
-        raise NotImplementedError("pairwise_sqdist is ported for D <= 4")
     if center is not None:
         a = a - center
         b = b - center
-    d = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+    if a.shape[-1] <= 4:
+        d = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+    else:
+        a_sq = (a * a).sum(-1, keepdim=True)                 # (N, 1)
+        b_sq = (b * b).sum(-1, keepdim=True)                 # (M, 1)
+        d = torch.clamp(a_sq + b_sq.T - 2.0 * (a @ b.T), min=0.0)
     if b_mask is not None:
         d = torch.where(b_mask[None, :], d, BIG)
     return d
@@ -44,3 +52,20 @@ def nn_query(source, target, tgt_mask, src_mask=None):
     if src_mask is not None:
         dist = torch.where(src_mask, dist, BIG)
     return dist, idx
+
+
+def knn_query(query, query_mask, points, points_mask, k: int):
+    """k nearest valid ``points`` for each query row, nearest first.
+
+    Returns (dists (Q, k), indices (Q, k) int64); rows whose query_mask is
+    False get distance BIG. A stable sort puts the lower index first among
+    equal distances, as icp_tpu's ``lax.top_k`` does (``torch.topk``
+    promises no order among ties on CUDA).
+    """
+    center = masked_centroid(points, points_mask)
+    d = pairwise_sqdist(query, points, points_mask, center=center)
+    d_sorted, idx = torch.sort(d, dim=-1, stable=True)
+    dist = torch.sqrt(torch.clamp(d_sorted[:, :k], min=0.0))
+    if query_mask is not None:
+        dist = torch.where(query_mask[:, None], dist, BIG)
+    return dist, idx[:, :k]

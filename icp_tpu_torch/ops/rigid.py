@@ -1,5 +1,7 @@
 """Closed-form rigid-alignment solves (counterpart of icp_tpu.ops.rigid:
-``p2p_solve_2d``, ``solve3x3``, ``p2l_solve_2d``)."""
+``p2p_solve_2d``, ``solve3x3``, ``p2l_solve_2d``), plus
+``p2p_solve_2d_batched``, the form of ``jax.vmap(p2p_solve_2d)`` that
+RANSAC fits its hypotheses with."""
 from __future__ import annotations
 
 import torch
@@ -27,6 +29,25 @@ def p2p_solve_2d(src, dst, w):
     theta = torch.atan2(W[0, 1] - W[1, 0], W[0, 0] + W[1, 1])
     R = rotmat(theta)
     t = mu_d - R @ mu_s
+    return R, t
+
+
+def p2p_solve_2d_batched(src, dst, w):
+    """``p2p_solve_2d`` over a leading batch: src, dst (..., P, 2), w (P,) or
+    (..., P). Returns R (..., 2, 2), t (..., 2).
+
+    The cross-covariance is summed elementwise, not by a matrix product,
+    so each batch entry is computed as the single solve computes it."""
+    w = w.expand(src.shape[:-1])
+    wsum = torch.clamp(w.sum(-1), min=1e-12)[..., None]
+    mu_s = (src * w[..., None]).sum(-2) / wsum
+    mu_d = (dst * w[..., None]).sum(-2) / wsum
+    s = (src - mu_s[..., None, :]) * w[..., None]
+    d = dst - mu_d[..., None, :]
+    W = (s[..., :, :, None] * d[..., :, None, :]).sum(-3)      # (..., 2, 2)
+    theta = torch.atan2(W[..., 0, 1] - W[..., 1, 0], W[..., 0, 0] + W[..., 1, 1])
+    R = rotmat(theta)
+    t = mu_d - (R @ mu_s[..., None])[..., 0]
     return R, t
 
 

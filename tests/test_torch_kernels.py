@@ -255,11 +255,14 @@ def test_nn_cuda_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows_n,m", [(20 * 768, 1792), (240 * 768, 768),
-                                      (30 * 768, 768)],
-                         ids=["fine_sweep", "lc_coarse", "lc_fine"])
+                                      (30 * 768, 768), (151 * 768, 1792),
+                                      (32 * 768, 1792)],
+                         ids=["fine_sweep", "lc_coarse", "lc_fine",
+                              "no_imu_coarse", "no_imu_fine"])
 def test_nn_min_cuda_matches_plain_on_card(cuda_device, rows_n, m):
-    """nn_min_cuda against nn_min_plain at the submap fine sweep's shape
-    and at loop-closure verification's coarse and fine sweeps."""
+    """nn_min_cuda against nn_min_plain at the submap fine sweep's shape,
+    at loop-closure verification's coarse and fine sweeps, and at the
+    no-IMU submap sweep's (151 angles over +-60 degrees, then 32)."""
     rng = np.random.default_rng(7)
     rows = torch.as_tensor(rng.uniform(-20, 20, (rows_n, 2)).astype(np.float32),
                            device=cuda_device)

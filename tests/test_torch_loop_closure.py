@@ -7,7 +7,10 @@ The sequence is a 40-scan x 180-beam ``trajectory="loop"`` run (seed 5)
 with the dryrun config of test_torch_slam.py, ICP capped at 20 iterations,
 reduced capacities and a loop-closure section that closes the loop once
 (node 37 to node 0) and exercises the rollback. The engines run once per
-module and every test reads their results. The `gpu`-marked test runs the
+module and every test reads their results. The same loop also runs with
+``features.method: "both"`` (verification by rotation search, feature
+alignment and ICP, with icp_tpu's RANSAC uniforms injected) and through
+the modular path (``tpu.fused: false``). The `gpu`-marked test runs the
 loop-closure path on a card against the same path on the CPU
 (``python -m pytest --noconftest -m gpu tests/test_torch_loop_closure.py``;
 JAX is imported only inside the tests that use it).
@@ -27,6 +30,7 @@ from icp_tpu_torch.services.lidar import LidarService  # noqa: E402
 from icp_tpu_torch.utils.config import SlamConfig as TConfig  # noqa: E402
 from icp_tpu_torch.utils.metrics import ate  # noqa: E402
 from icp_tpu_torch.utils.synth import generate_sequence  # noqa: E402
+from test_torch_features import JaxRansacStream, uninstall_stream  # noqa: E402
 
 LC_CFG = {
     "icp": {"voxel_size": 0.08, "max_iterations": 20,
@@ -49,20 +53,29 @@ LC_CFG = {
 WARM_AT = 3          # batched runs call warmup() after this many batches
 
 
-def _cfg(B):
+# features.method "both": the knobs of test_torch_slam.py's features runs
+BOTH_SECTION = {"method": "both", "voxel_size": 0.15, "ransac_iterations": 128,
+                "top_n": 32, "k_descriptor": 8, "min_kp_dist": 0.2}
+
+
+def _cfg(B, features=None, fused=True):
     d = copy.deepcopy(LC_CFG)
     d["tpu"]["batch_scans"] = B
+    d["tpu"]["fused"] = fused
+    if features:
+        d["features"].update(features)
     return d
 
 
-def _engines(B, imu_f):
+def _engines(B, imu_f, features=None, fused=True):
     from icp_tpu.engine import SlamEngine
     from icp_tpu.services.imu import IMUService
     from icp_tpu.utils.config import SlamConfig
 
-    return (TEngine(TConfig.from_dict(_cfg(B)), imu=TIMU(imu_f),
-                    verbose=False, device="cpu"),
-            SlamEngine(SlamConfig.from_dict(_cfg(B)), imu=IMUService(imu_f),
+    d = _cfg(B, features, fused)
+    return (TEngine(TConfig.from_dict(d), imu=TIMU(imu_f), verbose=False,
+                    device="cpu"),
+            SlamEngine(SlamConfig.from_dict(d), imu=IMUService(imu_f),
                        verbose=False))
 
 
@@ -123,6 +136,38 @@ def runs(seq):
         _drive(ej, scans, rels, B)
         out[B] = (et, ej, rec)
     return out
+
+
+@pytest.fixture(scope="module")
+def runs_both(seq):
+    """(port engine, icp_tpu engine) on the loop, batches of 4, with
+    features.method "both"; the port's verification draws icp_tpu's
+    per-lane RANSAC uniforms."""
+    gt, scans, rels, imu_f = seq
+    et, ej = _engines(4, imu_f, BOTH_SECTION)
+    stream = JaxRansacStream(int(BOTH_SECTION["ransac_iterations"])).install()
+    try:
+        stream.wrap_verification(et)
+        _drive(et, scans, rels, 4)
+    finally:
+        uninstall_stream()
+    assert not stream.lanes
+    _drive(ej, scans, rels, 4)
+    return et, ej
+
+
+@pytest.fixture(scope="module")
+def runs_modular(seq):
+    """(port engine, icp_tpu engine) on the loop through the modular path
+    (tpu.fused: false), scan by scan; icp_tpu's map is read after
+    sync_map, as it leaves it."""
+    gt, scans, rels, imu_f = seq
+    et, ej = _engines(4, imu_f, fused=False)
+    _drive(et, scans, rels, 1)
+    for p, r in zip(scans, rels):
+        ej.process_scan(p, r)
+    ej.sync_map()
+    return et, ej
 
 
 def _lc_edges(pg):
@@ -341,6 +386,50 @@ def test_loop_slice_matches_icp_tpu(seq, runs, B):
         r.pose = p
     et._map_dirty = True
     et.sync_map()                              # restore the fixture's map
+
+
+def test_loop_with_both_alignment_matches_icp_tpu(seq, runs_both):
+    """features.method "both" (IMU on, so features run only in
+    verification): both packages accept the same closure (37 to 0) with
+    equal loop-closure counters; positions within 5 mm and the ATE to
+    1e-4 m."""
+    gt, scans, rels, imu_f = seq
+    et, ej = runs_both
+    for f in ("scans", "rejected", "submap_corrections", "loop_closures",
+              "lc_checks", "lc_pairs", "lc_groups", "lc_requeued_scans"):
+        assert getattr(et.stats, f) == getattr(ej.stats, f), f
+    assert _lc_edges(et.pose_graph) == _lc_edges(ej.pose_graph) == [(37, 0)]
+    pt, pj = np.stack(et.pose_trajectory), np.stack(ej.pose_trajectory)
+    np.testing.assert_allclose(pt[:, :2, 2], pj[:, :2, 2], atol=5e-3)
+    at = ate(pt[:, :2, 2], gt, indices=et.pose_scan_indices)
+    aj = ate(pj[:, :2, 2], gt, indices=ej.pose_scan_indices)
+    assert abs(at - aj) < 1e-4 and at < 0.2
+
+
+def test_modular_loop_replays_map_after_closure(seq, runs_modular):
+    """The modular path (tpu.fused: false) on the loop: the same closure
+    and counters as icp_tpu's modular path, positions within 5 mm. After
+    sync_map the port's map is the replay at the corrected poses: icp_tpu's
+    own sync_map skips that replay on this path (its map keeps the
+    pre-closure paints), and once icp_tpu's _rebuild_map() is called by
+    hand the two maps agree within 1e-3 in all but at most one cell (the
+    cell-boundary flip of test_loop_slice_matches_icp_tpu)."""
+    gt, scans, rels, imu_f = seq
+    et, ej = runs_modular
+    assert et._state is None and ej._state is None
+    for f in ("scans", "rejected", "submap_corrections", "loop_closures",
+              "lc_checks", "icp_iters"):
+        assert getattr(et.stats, f) == getattr(ej.stats, f), f
+    assert _lc_edges(et.pose_graph) == _lc_edges(ej.pose_graph) == [(37, 0)]
+    pt, pj = np.stack(et.pose_trajectory), np.stack(ej.pose_trajectory)
+    np.testing.assert_allclose(pt[:, :2, 2], pj[:, :2, 2], atol=5e-3)
+    lt = et.mapper.log_odds.numpy()
+    stale = _host(ej.mapper.log_odds)
+    ej._rebuild_map()
+    lj = _host(ej.mapper.log_odds)
+    assert int((np.abs(stale - lj) > 1e-3).sum()) > 100   # icp_tpu's stale map
+    assert int((np.abs(lt - lj) > 1e-3).sum()) <= 1
+    assert not et._map_dirty
 
 
 def test_warmup_keeps_the_fused_grid(runs):
