@@ -6,20 +6,24 @@
 Phases (any failed check ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from icp_tpu_torch/csrc with nvcc;
-  3. hold each kernel against its plain torch version on the card at the
-     shapes of every path (plus ragged and tie cases; nn_min_cuda also at
-     the no-IMU submap sweep's coarse and fine shapes), and icp_core with
-     the kernel against icp_core with the plain query;
+  3. hold each kernel against its plain torch version on the card, bit for
+     bit: nn_cuda at the main path's shapes plus ragged and tie cases,
+     nn_min_cuda at the six sweep shapes (the IMU main path's, the no-IMU
+     path's and loop-closure verification's coarse and fine passes) and
+     its edge cases (M = 0, all masked, R = 1, M odd, an unaligned target,
+     rows equal to targets, M over one staged tile, d2 above BIG), one
+     launch a call; and icp_core with the kernel against icp_core with the
+     plain query;
   4. drive the main path: the 200-scan x 720-beam bench sequence through
      SlamEngine (first scan, then batches of 16, finish, sync_map) with
      the kernels' launch counters reset just before; check both counters
      are > 0, the poses and map are finite, and ATE <= 0.050 m;
   5. time a second, warm pass (scans/s) and each kernel against its plain
      version at the paths' shapes (nn_cuda at scan x scan and scan x
-     submap capacity, nn_min_cuda at the loop-closure coarse sweep, the
-     no-IMU submap coarse sweep and the IMU submap fine sweep), by CUDA
-     events around back-to-back calls and by CUDA-graph replays (device
-     time only);
+     submap capacity, nn_min_cuda at the six sweep shapes), by CUDA events
+     around back-to-back calls and by CUDA-graph replays (device time
+     only), each shape beside its bound (6 flops a pair at the H100's
+     67 TFLOP/s float32 peak, or its bytes at 3.35 TB/s if more);
   6. drive the loop-closure path: the same sequence with bench_suite's
      loop-closure section (first scan, warmup, batches of 16 with rollback
      at accepted closures, finish, sync_map), counters reset just before;
@@ -59,7 +63,9 @@ import torch
 N_SCANS, N_BEAMS, BATCH = 200, 720, 16
 ATE_BOUND_M = 0.050       # icp_tpu scores 0.0416 m on this sequence
 LC_ATE_BOUND_M = 0.030    # icp_tpu scores 0.0186 m with loop closure
-RTOL, ATOL = 1e-4, 1e-5   # nn_min_cuda vs plain (nn_cuda must be bit-equal)
+# an H100 SXM's published peaks: float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+FLOPS_PER_PAIR = 6        # 2 subtracts, 2 multiplies, 1 add, 1 min
 
 # bench.py's configuration (BASELINE config #3: IMU + submap, no loop closure)
 BENCH_CFG = {
@@ -206,6 +212,40 @@ def nn_cases(rng):
     return cases
 
 
+def nn_min_cases(rng, sweep_shapes):
+    """(label, rows, tgt, mask) cases for nn_min_cuda: every sweep shape
+    (10 % of the targets masked) and the edges of the kernel's staging and
+    launch geometry."""
+    cases = [(label, _cloud(rng, r), _cloud(rng, m), rng.random(m) < 0.9)
+             for label, (r, m) in sweep_shapes.items()]
+    same = _cloud(rng, 1792)
+    far = (-1e16, 1e16)           # nearest d2 around 1e30, on both sides of BIG
+    cases += [
+        ("M = 0", _cloud(rng, 300), np.zeros((0, 2), np.float32), np.zeros(0, bool)),
+        ("all masked", _cloud(rng, 300), _cloud(rng, 1000), np.zeros(1000, bool)),
+        ("R = 1", _cloud(rng, 1), _cloud(rng, 1792), rng.random(1792) < 0.9),
+        ("M odd", _cloud(rng, 777), _cloud(rng, 1791), rng.random(1791) < 0.9),
+        ("M = 5", _cloud(rng, 500), _cloud(rng, 5), np.ones(5, bool)),
+        ("misaligned", _cloud(rng, 2000), _cloud(rng, 1792), rng.random(1792) < 0.9),
+        ("rows = targets", same.copy(), same, rng.random(1792) < 0.9),
+        ("M = 4096", _cloud(rng, 3000), _cloud(rng, 4096), rng.random(4096) < 0.9),
+        ("M = 9000", _cloud(rng, 3000), _cloud(rng, 9000), rng.random(9000) < 0.9),
+        ("far, none masked", _cloud(rng, 600, *far), _cloud(rng, 700, *far),
+         np.ones(700, bool)),
+    ]
+    return cases
+
+
+def imu_sweep_rows(cfg, src_cap):
+    """Rows of the IMU main path's submap sweep: the coarse pass over
+    +-imu_narrow at 0.5 degrees, then _fine_count(0.5, fine step) angles."""
+    from icp_tpu_torch.models.prealign import _fine_count
+
+    r = cfg.imu_narrow
+    coarse = len(np.arange(-r, r + 0.5, 0.5))
+    return coarse * src_cap, _fine_count(0.5, cfg.sub_rot_fine) * src_cap
+
+
 def no_imu_sweep_rows(cfg, src_cap):
     """Rows of the no-IMU submap sweep's coarse and fine passes: one
     src_cap cloud per angle of +-rotation_range at rotation_step, and
@@ -219,8 +259,8 @@ def no_imu_sweep_rows(cfg, src_cap):
 
 def check_kernels(dev, sweep_shapes) -> dict:
     """Phase 3: each kernel against its plain version; returns the max
-    absolute d2 error per kernel. ``sweep_shapes``: extra (rows, targets)
-    shapes for nn_min_cuda."""
+    absolute d2 error per kernel. ``sweep_shapes``: {label: (rows,
+    targets)} of nn_min_cuda's calls on the paths."""
     from icp_tpu_torch.models.icp import icp_core
     from icp_tpu_torch.ops.hopper import nn_kernel as K
 
@@ -248,27 +288,27 @@ def check_kernels(dev, sweep_shapes) -> dict:
         err["nn"] = max(err["nn"], e)
         log(f"  nn_cuda {label} {shape}: indices equal, d2 bit-equal")
 
-    # nn_min_cuda: the loop-closure sweeps, the no-IMU submap sweeps, the
-    # fine sweep's 20 x 768 rows, ragged rows, all-masked
-    for rows, tgt, msk in [
-            *[(_cloud(rng, r), _cloud(rng, 768), rng.random(768) < 0.9)
-              for r in LC_SWEEP_ROWS],
-            *[(_cloud(rng, r), _cloud(rng, m), rng.random(m) < 0.9)
-              for r, m in sweep_shapes],
-            (_cloud(rng, 20 * 768), _cloud(rng, 4096), rng.random(4096) < 0.9),
-            (_cloud(rng, 13 * 700 + 3), _cloud(rng, 4000), rng.random(4000) < 0.9),
-            (_cloud(rng, 300), _cloud(rng, 1000), np.zeros(1000, bool))]:
+    # nn_min_cuda: bit-equal, one launch a call, at every sweep shape and
+    # edge case
+    for label, rows, tgt, msk in nn_min_cases(rng, sweep_shapes):
         r, g, m = t(rows), t(tgt), t(msk)
+        if label == "misaligned":    # a view one row into its storage
+            g = t(np.concatenate([tgt[:1], tgt]))[1:]
+            assert g.data_ptr() % 16 == 8 and g.is_contiguous()
+        before = K.nn_min_launches
         d_k = K.nn_min_cuda(r, g, m)
         d_p = K.nn_min_plain(r, g, m)
         torch.cuda.synchronize()
-        assert torch.allclose(d_k, d_p, rtol=RTOL, atol=ATOL), \
-            f"nn_min_cuda != plain at {rows.shape}x{tgt.shape}"
+        shape = f"{rows.shape[0]}x{tgt.shape[0]}"
+        assert K.nn_min_launches == before + 1, f"nn_min_cuda launches: {label} {shape}"
+        assert torch.equal(d_k, d_p), f"nn_min_cuda not bit-equal to plain: {label} {shape}"
         if not msk.any():
             assert bool((d_k == np.float32(1e30)).all()), "all-masked rows must be BIG"
-        err["nn_min"] = max(err["nn_min"], float((d_k - d_p).abs().max()))
-        log(f"  nn_min_cuda {rows.shape[0]}x{tgt.shape[0]}: max |d2 err| "
-            f"{float((d_k - d_p).abs().max()):.3g}")
+        err["nn_min"] = max(err["nn_min"], float((d_k - d_p).abs().max())
+                            if d_k.numel() else 0.0)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        log(f"  nn_min_cuda {label} {shape} (geometry k, cluster, slice "
+            f"{K.nn_min_geometry(rows.shape[0], tgt.shape[0], sms)}): bit-equal")
 
     # icp_core with the kernel ("auto") against the plain query ("xla")
     tgt = rng.uniform(-5, 5, (768, 2)).astype(np.float32)
@@ -290,12 +330,25 @@ def check_kernels(dev, sweep_shapes) -> dict:
     return err
 
 
-def time_kernels(dev, scan_cap, submap_cap, sweep_src_cap, sweep_tgt_cap,
-                 no_imu_rows, card) -> dict:
-    """Each kernel against its plain version at the main path's shapes, in
-    turns (plain, kernel, kernel, plain) by both measures: CUDA events
-    around 100 back-to-back calls (the host's launch gaps count) and
-    CUDA-graph replays (device only). Returns {key: {shape: figures}}."""
+def kernel_bound(key, n, m):
+    """(bound_ms, bound_by) of one call at n rows x m targets: the larger of
+    FLOPS_PER_PAIR flops a pair at PEAK_F32_FLOPS (nn_cuda's argmin compare
+    and select not counted) and its bytes (inputs read once, outputs
+    written once) at PEAK_BYTES_S."""
+    out_bytes = 8 if key == "nn" else 4
+    ops_ms = 1e3 * FLOPS_PER_PAIR * n * m / PEAK_F32_FLOPS
+    bytes_ms = 1e3 * (8 * n + 9 * m + out_bytes * n) / PEAK_BYTES_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def time_kernels(dev, scan_cap, submap_cap, sweep_shapes, card) -> dict:
+    """Each kernel against its plain version at the paths' shapes (nn_cuda
+    at scan x scan and scan x submap capacity, nn_min_cuda at each of
+    ``sweep_shapes``), in turns (plain, kernel, kernel, plain) by both
+    measures: CUDA events around 100 back-to-back calls (the host's launch
+    gaps count) and CUDA-graph replays (device only), beside the shape's
+    bound and the device time's share of it. Returns {key: {shape:
+    figures}}."""
     from icp_tpu_torch.ops.hopper import nn_kernel as K
 
     rng = np.random.default_rng(7)
@@ -305,23 +358,17 @@ def time_kernels(dev, scan_cap, submap_cap, sweep_src_cap, sweep_tgt_cap,
 
     s = t(_cloud(rng, scan_cap))
     runs = [("nn", K.nn_cuda, K.nn_plain, (s, t(_cloud(rng, m)),
-                                           t(rng.random(m) < 0.9)),
-             f"{scan_cap}x{m}") for m in (scan_cap, submap_cap)]
-    runs.append(("nn_min", K.nn_min_cuda, K.nn_min_plain,
-                 (t(_cloud(rng, LC_SWEEP_ROWS[0])), t(_cloud(rng, scan_cap)),
-                  t(rng.random(scan_cap) < 0.9)),
-                 f"{LC_SWEEP_ROWS[0]}x{scan_cap}"))
-    runs.append(("nn_min", K.nn_min_cuda, K.nn_min_plain,
-                 (t(_cloud(rng, no_imu_rows)), t(_cloud(rng, sweep_tgt_cap)),
-                  t(rng.random(sweep_tgt_cap) < 0.9)),
-                 f"{no_imu_rows}x{sweep_tgt_cap}"))
-    runs.append(("nn_min", K.nn_min_cuda, K.nn_min_plain,
-                 (t(_cloud(rng, 20 * sweep_src_cap)), t(_cloud(rng, sweep_tgt_cap)),
-                  t(rng.random(sweep_tgt_cap) < 0.9)),
-                 f"{20 * sweep_src_cap}x{sweep_tgt_cap}"))
+                                           t(rng.random(m) < 0.9)))
+            for m in (scan_cap, submap_cap)]
+    runs += [("nn_min", K.nn_min_cuda, K.nn_min_plain,
+              (t(_cloud(rng, r)), t(_cloud(rng, m)), t(rng.random(m) < 0.9)))
+             for r, m in sweep_shapes.values()]
     timings = {}
-    for key, kern, plain, args, shape in runs:
-        fig = {}
+    for key, kern, plain, args in runs:
+        n, m = args[0].shape[0], args[1].shape[0]
+        shape = f"{n}x{m}"
+        bound_ms, bound_by = kernel_bound(key, n, m)
+        fig = {"bound_ms": bound_ms, "bound_by": bound_by}
         for measure, timer in (("", time_ms), ("device_", graph_ms)):
             p1 = timer(lambda: plain(*args))
             k1 = timer(lambda: kern(*args))
@@ -333,6 +380,9 @@ def time_kernels(dev, scan_cap, submap_cap, sweep_src_cap, sweep_tgt_cap,
                 f"kernel {1e3 * fig[f'{measure}ms']:.2f} us, plain "
                 f"{1e3 * fig[f'plain_{measure}ms']:.2f} us (runs {k1 * 1e3:.2f}/"
                 f"{k2 * 1e3:.2f} vs {p1 * 1e3:.2f}/{p2 * 1e3:.2f}) on {card}")
+        fig["bound_share"] = bound_ms / fig["device_ms"]
+        log(f"{key} at {shape}: bound {1e3 * bound_ms:.2f} us ({bound_by}), "
+            f"device time {100 * fig['bound_share']:.1f} % of it on {card}")
         timings.setdefault(key, {})[shape] = fig
     return timings
 
@@ -603,19 +653,29 @@ def main():
     probe_eng = SlamEngine(cfg, verbose=False, device=dev)
     probe_eng._resolve_sweep_caps(scans[0])
     src_cap, tgt_cap = probe_eng._sweep_caps
-    no_imu_rows = no_imu_sweep_rows(cfg, src_cap)
-    log(f"kernel checks (sweep caps {src_cap}, {tgt_cap}; no-IMU submap "
-        f"sweep rows {no_imu_rows[0]} coarse, {no_imu_rows[1]} fine):")
-    err = check_kernels(dev, [(r, tgt_cap) for r in no_imu_rows])
+    # nn_min_cuda's calls on the paths: (rows, targets) of each sweep pass
+    imu_rows, no_imu_rows = imu_sweep_rows(cfg, src_cap), no_imu_sweep_rows(cfg, src_cap)
+    sweep_shapes = {
+        "main coarse": (imu_rows[0], tgt_cap), "main fine": (imu_rows[1], tgt_cap),
+        "no-IMU coarse": (no_imu_rows[0], tgt_cap),
+        "no-IMU fine": (no_imu_rows[1], tgt_cap),
+        "LC coarse": (LC_SWEEP_ROWS[0], cfg.scan_capacity),
+        "LC fine": (LC_SWEEP_ROWS[1], cfg.scan_capacity)}
+    log(f"kernel checks (sweep caps {src_cap}, {tgt_cap}; nn_min_cuda sweep "
+        f"shapes {sweep_shapes}):")
+    err = check_kernels(dev, sweep_shapes)
 
     # ── 4. the main path ─────────────────────────────────────────────────
     K.reset_launch_counts()
     eng, wall1 = run_engine(cfg, imu, scans, rels, dev)
     launches = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    n_steps = len(scans) - 1
     log(f"main path: {len(eng.pose_trajectory)} poses, "
         f"{eng.stats.submap_corrections} submap corrections, "
         f"{eng.stats.rejected} rejected, {eng.stats.icp_iters} s2s ICP "
-        f"iterations, {wall1:.2f} s cold; launches {launches}")
+        f"iterations, {wall1:.2f} s cold; launches {launches}, per scan "
+        f"nn {launches['nn'] / n_steps:.2f} nn_min "
+        f"{launches['nn_min'] / n_steps:.2f}")
     assert launches["nn"] > 0 and launches["nn_min"] > 0, launches
     traj = np.stack(eng.pose_trajectory)
     assert np.isfinite(traj).all(), "non-finite pose"
@@ -632,7 +692,6 @@ def main():
     # ── 5. warm pass and kernel timings ──────────────────────────────────
     eng2, wall2 = run_engine(cfg, imu, scans, rels, dev)
     traj2 = np.stack(eng2.pose_trajectory)
-    n_steps = len(scans) - 1
     log(f"scans/s (warm pass, {n_steps} scans after the first): "
         f"{n_steps / wall2:.2f} ({wall2:.2f} s; cold pass {n_steps / wall1:.2f}) "
         f"on {card}; warm-pass max |pose diff| vs cold "
@@ -640,7 +699,7 @@ def main():
 
     assert eng._sweep_caps == (src_cap, tgt_cap), eng._sweep_caps
     timings = time_kernels(dev, cfg.scan_capacity, cfg.submap_capacity,
-                           src_cap, tgt_cap, no_imu_rows[0], card)
+                           sweep_shapes, card)
 
     # ── 6. the loop-closure path ─────────────────────────────────────────
     lc_dict = dict(BENCH_CFG, loop_closure=LC_SECTION)
@@ -679,9 +738,13 @@ def main():
     launches_feat = features_phases(SlamConfig, ate, dev, card, gt, scans,
                                     rels, imu, ate_m)
     kernels = []
+    # the top-level figures are those of the main path's heaviest call: the
+    # submap ICP's query and the submap sweep's fine pass
+    tops = {"nn": f"{cfg.scan_capacity}x{cfg.submap_capacity}",
+            "nn_min": "x".join(map(str, sweep_shapes["main fine"]))}
     for name, key, line in (("nn_cuda", "nn", 30), ("nn_min_cuda", "nn_min", 64)):
         shapes = timings[key]
-        top = list(shapes.values())[-1]   # the submap ICP / the fine sweep
+        top = shapes[tops[key]]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "icp_tpu_torch/csrc/nn_kernel.cu",
@@ -691,10 +754,16 @@ def main():
                                  "loop_closure": launches_lc[key],
                                  **{path: n[key]
                                     for path, n in launches_feat.items()}},
-            "max_abs_err": err[key],
+            "launches_per_main_scan": launches[key] / n_steps,
+            "max_abs_err": err[key], "shape": tops[key],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "device_ms": top["device_ms"],
-            "plain_device_ms": top["plain_device_ms"], "shapes": shapes})
+            "plain_device_ms": top["plain_device_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "bound_share": top["bound_share"],
+            # no one torch call gives the masked min squared distance:
+            # torch.cdist returns square roots, through the matmul expansion
+            "library_ms": None, "shapes": shapes})
     print(card, flush=True)       # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -68,16 +68,63 @@
 //   global-load round trip to stage the slice, a few hundred cycles of
 //   compute per lane, the shuffles and one cluster barrier.
 //
-// icp_nn_min: the rotation sweep's scorer, at 20 x 768 rows x ~1800
-// targets. One thread owns one row and keeps its running minimum in
-// registers; the block stages tiles of the target as three shared-memory
-// planes (x, y, valid) and every thread walks the whole tile (a
-// shared-memory broadcast). 15360 rows fill 60 blocks. Later work: fuse
-// the sweep's rotation/placement and per-angle masked mean into it.
+// icp_nn_min: the rotation sweep's scorer (replaces _nn_min_kernel, via
+// nn_min_pallas). Rows are angles x 768 placed points, targets the 1792
+// (submap) or 768 (scan) sweep voxels: 9,984 and 15,360 x 1792 on the IMU
+// main path, 115,968 and 24,576 x 1792 without IMU, 184,320 and 23,040 x
+// 768 in loop-closure verification.
+//
+//   Bound. A pair costs 6 float32 operations (2 subtracts, 2 multiplies,
+//   1 add, 1 min); at the H100's 67 TFLOP/s that is 18.61 us at 115,968 x
+//   1792. The bytes are negligible (1.41 MB there, 0.42 us at 3.35 TB/s):
+//   every shape is compute-bound. The 67 TFLOP/s counts an FMA as two
+//   operations, and bit-equality with the plain version forbids FMA, so 6
+//   single-issue instructions a pair make 50 % of the bound the ceiling of
+//   any bit-exact kernel (37.3 us at 115,968 x 1792 at 1.98 GHz).
+//   No tensor cores: ||s||^2 + ||t||^2 - 2 s.t gives other bits, and in
+//   f32 it cancels catastrophically at map coordinates of tens of metres
+//   (||s||^2 ~ 1e3 m^2 against the ~1e-4 m^2 being ranked); TF32 is worse.
+//
+//   The old design gave one thread one row and walked tiles of x, y and
+//   mask planes: 3 shared-memory loads and a select for each pair (the
+//   load/store pipe, not the FP32 pipe, set the rate), one serial fminf
+//   chain a thread, and ceil(R / 256) blocks (39 and 60 on 132 SMs at the
+//   main path's shapes). On an H100 80GB HBM3 at 700 W, device-only:
+//   55.8 us at 15,360 x 1792, 110.0 us at 115,968 x 1792 (16.9 % of the
+//   bound), 67.5 us at 184,320 x 768.
+//
+//   Design. A lane holds K = 4 or 8 rows in registers, so one staged
+//   target feeds K independent min chains; the 8 warps of a block share
+//   its 32 K rows and split its slice of the targets, and the csize <= 8
+//   blocks of a cluster split the targets into slices. A block stages its
+//   slice once (2048 targets a pass; every path's fits) as float4 pairs,
+//   a masked target as NaN: fminf(x, NaN) = x, so the inner loop has no
+//   mask test and costs one broadcast LDS.128 per 2 targets per K rows,
+//   5 FP32 instructions and 1 FMNMX per pair; the next float4 is loaded a
+//   step ahead. The minimum of d2 >= 0 (never -0, NaN dropped) is exact
+//   and order-free, so the warps' partial minima meet in shared memory
+//   and the cluster's in rank 0's (distributed shared memory, as icp_nn)
+//   with the same bits in any order: one launch, no atomics, no output to
+//   initialise. A row starts at +inf and takes BIG only where its slices
+//   hold a masked target (or M = 0), which is the plain version's
+//   where(mask, d2, BIG).amin even for d2 above BIG. The host picks
+//   (K, csize, slice) from (R, M) (ops/hopper/nn_kernel.py
+//   nn_min_geometry) so that every sweep shape puts a block on each SM.
+//
+//   Times on an H100 80GB HBM3 at 700 W, device-only (CUDA-graph replays,
+//   chip_smoke.py): 7.65 / 9.46 / 12.78 / 45.87 us at 9,984 / 15,360 /
+//   24,576 / 115,968 x 1792 and 7.14 / 33.60 us at 23,040 / 184,320 x
+//   768: 40.6 % and 37.7 % of the bound at the two large shapes, ~80 % of
+//   the no-FMA ceiling. Past the fixed cost the issue rate reached is
+//   ~0.89 of one instruction a cycle at 115,968 rows and ~0.72 at 15,360
+//   (tools/nn_min_sweep.py --detail). At the main path's shapes ~2 us are
+//   fixed (the launch and one global round trip) and the rest is the
+//   busiest SM's share of pairs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace cg = cooperative_groups;
@@ -226,48 +273,120 @@ nn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 
 // ── icp_nn_min ────────────────────────────────────────────────────────────
 
-constexpr int kThreads = 256;   // source rows per block
-constexpr int kTile = 1024;     // targets staged in shared memory per pass
+constexpr int kMinWarps = 8;                  // split one block's targets
+constexpr int kMinThreads = 32 * kMinWarps;   // 256
+constexpr int kMinTile = 2048;   // targets staged in shared memory per pass
 
-// Stage target[base : base + cnt] into the shared planes.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ tgt,
-                                           const unsigned char* __restrict__ mask,
-                                           int base, int cnt, float* tx, float* ty,
-                                           unsigned char* tv) {
-  for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-    tx[j] = tgt[2 * (base + j)];
-    ty[j] = tgt[2 * (base + j) + 1];
-    tv[j] = mask[base + j];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+// K rows per lane; a block holds 32 * K rows, which all 8 warps share.
+template <int K>
+__global__ void __launch_bounds__(kMinThreads)
 nn_min_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-              const unsigned char* __restrict__ mask, int n, int m,
-              float* __restrict__ out_d) {
-  __shared__ float tx[kTile];
-  __shared__ float ty[kTile];
-  __shared__ unsigned char tv[kTile];
+              const unsigned char* __restrict__ mask, int n, int m, int csize,
+              int slice, bool vec, float* __restrict__ out_d) {
+  constexpr int kRows = 32 * K;
+  extern __shared__ float4 tile[];             // (x0, y0, x1, y1): two targets
+  __shared__ float part[kMinWarps][kRows];     // each warp's minima
+  __shared__ float cpart[kMaxCluster][kRows];  // rank 0's copy: each rank's
 
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = row < n;
-  const float sx = live ? src[2 * row] : 0.0f;
-  const float sy = live ? src[2 * row + 1] : 0.0f;
-  float best_d = kBig;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // a 1-D cluster of csize blocks: rank = blockIdx.x % csize
+  const int rank = static_cast<int>(blockIdx.x % csize);
+  const size_t row0 = static_cast<size_t>(blockIdx.x / csize) * kRows;
+  const float nan = __int_as_float(0x7fffffff);
+  if (csize > 1)   // as in nn_kernel: its wait comes before the pushes
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  for (int base = 0; base < m; base += kTile) {
-    const int cnt = min(kTile, m - base);
-    __syncthreads();
-    stage_tile(tgt, mask, base, cnt, tx, ty, tv);
-    __syncthreads();
-    if (live) {
-      for (int j = 0; j < cnt; ++j) {
-        const float d = tv[j] ? sqdist(sx, sy, tx[j], ty[j]) : kBig;
-        best_d = fminf(best_d, d);
+  // this block's slice of the targets: [lo, hi)
+  const int lo = static_cast<int>(min(static_cast<long long>(m),
+                                      static_cast<long long>(rank) * slice));
+  const int hi = static_cast<int>(min(static_cast<long long>(m),
+                                      static_cast<long long>(lo) + slice));
+
+  // lane owns rows row0 + lane + 32 r: coalesced loads and stores
+  float sx[K], sy[K], best[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const size_t row = row0 + lane + 32 * r;
+    sx[r] = row < static_cast<size_t>(n) ? src[2 * row] : 0.0f;
+    sy[r] = row < static_cast<size_t>(n) ? src[2 * row + 1] : 0.0f;
+    best[r] = __int_as_float(0x7f800000);   // +inf
+  }
+  // the plain version counts a masked target as BIG and returns BIG for
+  // M = 0; any other target enters as its own d2
+  int masked = m == 0;
+
+  for (int base = lo; base < hi; base += kMinTile) {
+    const int end = min(hi, base + kMinTile);
+    const int pairs = (end - base + 1) / 2;
+    __syncthreads();  // previous tile fully consumed
+    // stage pairs q: targets base + 2q and base + 2q + 1 (base is even);
+    // masked targets, and the pad of an odd count, are NaN
+    int any = 0;
+    for (int q = tid; q < pairs; q += kMinThreads) {
+      const int j = base + 2 * q;
+      const size_t e = 2 * static_cast<size_t>(j);
+      float4 v = make_float4(nan, nan, nan, nan);
+      if (j + 1 < end) {
+        v = vec ? __ldg(reinterpret_cast<const float4*>(tgt + e))
+                : make_float4(tgt[e], tgt[e + 1], tgt[e + 2], tgt[e + 3]);
+        if (!mask[j]) { v.x = v.y = nan; any = 1; }
+        if (!mask[j + 1]) { v.z = v.w = nan; any = 1; }
+      } else if (mask[j]) {
+        v.x = tgt[e];
+        v.y = tgt[e + 1];
+      } else {
+        any = 1;
       }
+      tile[q] = v;
+    }
+    masked |= __syncthreads_or(any);
+    // warp w walks its own contiguous run of pairs [q0, q1); all lanes
+    // read the same float4 (a broadcast), and the next one is loaded before
+    // this one is used, so the load's latency hides behind 12 K operations
+    // (the tile has a spare float4 past its pairs for the last look-ahead).
+    // fminf(x, NaN) = x drops the masked targets.
+    const int per = (pairs + kMinWarps - 1) / kMinWarps;
+    const int q0 = min(pairs, warp * per);
+    const int q1 = min(pairs, q0 + per);
+    float4 t = tile[q0];
+#pragma unroll 2
+    for (int q = q0; q < q1; ++q) {
+      const float4 next = tile[q + 1];
+#pragma unroll
+      for (int r = 0; r < K; ++r)
+        best[r] = fminf(best[r], fminf(sqdist(sx[r], sy[r], t.x, t.y),
+                                       sqdist(sx[r], sy[r], t.z, t.w)));
+      t = next;
     }
   }
-  if (live) out_d[row] = best_d;
+
+  // warps -> one minimum per row; thread tid < kRows owns row row0 + tid
+#pragma unroll
+  for (int r = 0; r < K; ++r) part[warp][lane + 32 * r] = best[r];
+  __syncthreads();
+  const bool has_row = tid < kRows;
+  const size_t row = row0 + tid;
+  float v = masked ? kBig : __int_as_float(0x7f800000);
+  if (has_row) {
+#pragma unroll
+    for (int w = 0; w < kMinWarps; ++w) v = fminf(v, part[w][tid]);
+  }
+  if (csize == 1) {
+    if (has_row && row < static_cast<size_t>(n)) out_d[row] = v;
+    return;
+  }
+  // ranks -> rank 0 (distributed shared memory), as in nn_kernel
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  if (has_row) cluster.map_shared_rank(&cpart[rank][0], 0)[tid] = v;
+  cluster.sync();
+  if (rank == 0 && has_row && row < static_cast<size_t>(n)) {
+    float d = cpart[0][tid];
+    for (int c = 1; c < csize; ++c) d = fminf(d, cpart[c][tid]);
+    out_d[row] = d;
+  }
 }
 
 }  // namespace
@@ -311,13 +430,38 @@ extern "C" int icp_nn(const void* src, const void* tgt, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch geometry comes from the caller (ops/hopper/nn_kernel.py
+// nn_min_geometry): k rows per lane (4 or 8), csize blocks to a cluster,
+// each taking `slice` targets (even). Every target must lie in exactly one
+// non-empty slice; anything else returns cudaErrorInvalidValue unlaunched.
 extern "C" int icp_nn_min(const void* src, const void* tgt, const void* mask,
-                          int n, int m, void* out_d, void* stream) {
+                          int n, int m, int k, int csize, int slice,
+                          void* out_d, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  nn_min_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<const float*>(tgt),
-      static_cast<const unsigned char*>(mask), n, m,
+  const long long cs = csize, sl = slice;
+  if ((k != 4 && k != 8) || cs < 1 || cs > kMaxCluster || sl < 2 || sl % 2 ||
+      cs * sl < m || (m > 0 && (cs - 1) * sl >= m) || (m == 0 && cs != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = 32LL * k;
+  const bool vec = reinterpret_cast<uintptr_t>(tgt) % 16 == 0;
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((n + rows - 1) / rows * cs));
+  cfg.blockDim = dim3(kMinThreads);
+  cfg.dynamicSmemBytes = sizeof(float4) * ((std::min(slice, kMinTile) + 1) / 2 + 1);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = csize > 1 ? 1 : 0;
+  auto kernel = k == 8 ? &nn_min_kernel<8> : &nn_min_kernel<4>;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(src), static_cast<const float*>(tgt),
+      static_cast<const unsigned char*>(mask), n, m, csize, slice, vec,
       static_cast<float*>(out_d));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,7 +68,7 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.icp_nn.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
     lib.icp_nn.restype = ci
-    lib.icp_nn_min.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+    lib.icp_nn_min.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
     lib.icp_nn_min.restype = ci
     _lib = lib
     return lib

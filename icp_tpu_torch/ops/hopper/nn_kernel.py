@@ -11,8 +11,12 @@ what bounds them), built by ``ops/hopper/build.py`` at first use. Each
 wrapper takes its plain torch version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. ``nn_launches`` and
 ``nn_min_launches`` count kernel launches (not plain-version calls).
+``nn_min_cuda``'s launch geometry is chosen here (``nn_min_geometry``), so
+the CPU tests can check that it covers every (row, target) pair once.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,6 +24,10 @@ from icp_tpu_torch.utils.masking import BIG
 
 nn_launches = 0
 nn_min_launches = 0
+
+# icp_nn_min takes clusters of at most 8 blocks (csrc/nn_kernel.cu)
+NN_MIN_MAX_CLUSTER = 8
+H100_SMS = 132
 
 
 def reset_launch_counts() -> None:
@@ -106,6 +114,62 @@ def nn_cuda(source, target, tgt_mask):
     return d2, idx
 
 
+# nn_min_geometry's cost model, fitted to the times of every geometry at the
+# six sweep shapes on an H100 (icp_tpu_torch/tools/nn_min_sweep.py, PERF.md):
+# the resident blocks an SM holds (48 registers a thread at k = 8, 32 at
+# k = 4; 256 threads a block), and a fixed cost per block and per extra
+# block of a cluster, in pairs.
+_BLOCKS_PER_SM = {8: 5, 4: 8}
+_BLOCK_COST = 8192
+_CLUSTER_COST = 8192
+
+
+@functools.lru_cache(maxsize=256)
+def nn_min_geometry(n: int, m: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """icp_nn_min's launch geometry for n rows x m targets on ``sms`` SMs:
+    (k rows per lane, csize blocks to a cluster, slice targets a block).
+
+    A block holds 32 k rows; the csize blocks of a cluster split the
+    targets into slices of ``slice`` (even, none empty), and each block's 8
+    warps split its slice again. The kernel is issue-bound, so the choice
+    minimises the work of the busiest SM: blocks an SM x (32 k slice pairs
+    + a fixed cost), plus a cost per extra block of a cluster. Blocks an SM
+    is ceil(blocks / sms) while every block is resident at once, and
+    blocks / sms beyond that, where the block scheduler evens the load.
+    Only geometries that give every SM a block compete, where any does.
+    """
+    if m == 0:
+        return 4, 1, 2
+    best = None
+    for k, c, sl in nn_min_candidates(m):
+        blocks = -(-n // (32 * k)) * c
+        per_sm = -(-blocks // sms) if blocks <= _BLOCKS_PER_SM[k] * sms \
+            else blocks / sms
+        cost = per_sm * (32 * k * sl + _BLOCK_COST) + _CLUSTER_COST * (c - 1)
+        key = (blocks < sms, cost, c, -k)
+        if best is None or key < best[0]:
+            best = (key, (k, c, sl))
+    return best[1]
+
+
+def nn_min_candidates(m: int) -> list[tuple[int, int, int]]:
+    """Every geometry (k, csize, slice) icp_nn_min takes for m > 0 targets:
+    k in (8, 4), csize slices of an even size, none of them empty."""
+    out = []
+    for k in (8, 4):
+        for c in range(1, NN_MIN_MAX_CLUSTER + 1):
+            sl = -(-m // c)
+            sl += sl % 2
+            if -(-m // sl) == c:
+                out.append((k, c, sl))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def nn_min_cuda(rows, target, tgt_mask):
     """Min squared distance from each row to any valid target.
 
@@ -123,9 +187,10 @@ def nn_min_cuda(rows, target, tgt_mask):
     from icp_tpu_torch.ops.hopper.build import load
 
     lib = load()
+    k, csize, sl = nn_min_geometry(n, m, _sm_count(src.device.index))
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = lib.icp_nn_min(src.data_ptr(), tgt.data_ptr(), msk.data_ptr(), n, m,
-                         out.data_ptr(), stream)
+                         k, csize, sl, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"icp_nn_min kernel launch failed: cudaError {err}")
     nn_min_launches += 1

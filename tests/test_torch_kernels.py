@@ -152,6 +152,124 @@ def test_nn_split_and_reduce_is_exact(case, n_slices):
     np.testing.assert_array_equal(i.numpy(), i_pallas)
 
 
+@functools.lru_cache(maxsize=None)
+def _min_split_case(case):
+    """An nn_min case (256 rows x 300 targets; 10 % of the targets masked,
+    or all), its nn_min_plain answer and nn_min_pallas's (interpret mode)."""
+    import jax.numpy as jnp
+    from icp_tpu.ops.pallas.nn_kernel import nn_min_pallas
+
+    rng = np.random.default_rng(11)
+    src = rng.uniform(-5, 5, (256, 2)).astype(np.float32)
+    tgt = rng.uniform(-5, 5, (300, 2)).astype(np.float32)
+    src[:16] = tgt[:16]                                  # zero distances
+    msk = rng.random(300) >= 0.1 if case == "random" else np.zeros(300, bool)
+    d = K.nn_min_plain(torch.as_tensor(src), torch.as_tensor(tgt),
+                       torch.as_tensor(msk))
+    d_j = np.asarray(nn_min_pallas(jnp.asarray(src), jnp.asarray(tgt),
+                                   jnp.asarray(msk), tn=128, tm=128,
+                                   interpret=True))
+    return src, tgt, msk, d, d_j
+
+
+@pytest.mark.parametrize("n_slices", [1, 3, 8, 13])
+@pytest.mark.parametrize("case", ["random", "all-masked"])
+def test_nn_min_split_and_reduce_is_exact(case, n_slices):
+    """The algebra nn_min_cuda's kernel rests on. Each slice of the targets
+    is folded as a kernel thread folds it: masked targets replaced by NaN,
+    no mask, torch.fmin over the targets in order (fmin(x, NaN) = x), and
+    then BIG where the slice holds a masked target; that equals
+    nn_min_plain on the slice with its mask, bit for bit. The slices,
+    combined by torch.fmin in a shuffled order from a BIG start, equal
+    nn_min_plain on the whole set bit for bit and nn_min_pallas
+    (interpret mode) within rtol 1e-5, atol 1e-6."""
+    src, tgt, msk, d_all, d_pallas = _min_split_case(case)
+    s, g, m = (torch.as_tensor(a) for a in (src, tgt, msk))
+    g_nan = torch.where(m[:, None], g, torch.tensor(float("nan")))
+    parts = []
+    for sl in np.array_split(np.arange(g.shape[0]), n_slices):
+        lo, hi = int(sl[0]), int(sl[-1]) + 1
+        fold = torch.full((s.shape[0],), float("inf"))
+        for j in range(lo, hi):
+            dx = s[:, 0] - g_nan[j, 0]
+            dy = s[:, 1] - g_nan[j, 1]
+            fold = torch.fmin(fold, dx * dx + dy * dy)
+        if not bool(m[lo:hi].all()):
+            fold = torch.fmin(fold, torch.tensor(K.BIG))
+        assert torch.equal(fold, K.nn_min_plain(s, g[lo:hi], m[lo:hi]))
+        parts.append(fold)
+    d = torch.full((s.shape[0],), K.BIG)
+    for k in np.random.default_rng(n_slices).permutation(n_slices):
+        d = torch.fmin(d, parts[k])
+    assert torch.equal(d, d_all)
+    np.testing.assert_allclose(d.numpy(), d_pallas, rtol=1e-5, atol=1e-6)
+    if case == "all-masked":
+        assert bool((d == K.BIG).all())
+
+
+# the six shapes the sweep runs nn_min_cuda at (rows = angles x 768):
+# the IMU main path's coarse and fine passes, the no-IMU path's, and loop
+# closure verification's
+PATH_SHAPES = [(13 * 768, 1792), (20 * 768, 1792), (151 * 768, 1792),
+               (32 * 768, 1792), (240 * 768, 768), (30 * 768, 768)]
+# icp_nn_min's fixed shape (csrc/nn_kernel.cu kMinWarps, kMinTile): the 8
+# warps of a block split its slice; targets are staged 2048 at a time
+MIN_WARPS, MIN_TILE = 8, 2048
+
+
+def _nn_min_cover(n, m, k, csize, sl):
+    """What icp_nn_min's blocks reduce under geometry (k, csize, sl), by the
+    kernel's own index arithmetic: one (row_lo, row_hi, [(t_lo, t_hi), ...])
+    per block, the target runs of its warps over its staged tiles."""
+    rows = 32 * k
+    out = []
+    for b in range(-(-n // rows) * csize):
+        rank, row0 = b % csize, (b // csize) * rows
+        lo = min(m, rank * sl)
+        hi = min(m, lo + sl)
+        runs = []
+        for base in range(lo, hi, MIN_TILE):
+            end = min(hi, base + MIN_TILE)
+            pairs = (end - base + 1) // 2
+            per = -(-pairs // MIN_WARPS)
+            for w in range(MIN_WARPS):
+                q0, q1 = min(pairs, w * per), min(pairs, (w + 1) * per)
+                if q0 < q1:
+                    runs.append((base + 2 * q0, min(end, base + 2 * q1)))
+        out.append((row0, min(n, row0 + rows), runs))
+    return out
+
+
+@pytest.mark.parametrize("n,m", PATH_SHAPES + [
+    (1, 1792), (300, 0), (777, 1791), (500, 5), (3000, 4096), (3000, 9000)])
+def test_nn_min_geometry_covers_every_pair_once(n, m):
+    """nn_min_geometry's launch, traced by the kernel's index arithmetic
+    (_nn_min_cover): the blocks' row ranges tile [0, n), the target runs of
+    each row range's blocks and warps tile [0, m) with no overlap, the
+    geometry passes the kernel's own checks, and every path shape puts a
+    block on each of the H100's 132 SMs."""
+    k, csize, sl = K.nn_min_geometry(n, m)
+    assert k in (4, 8) and 1 <= csize <= K.NN_MIN_MAX_CLUSTER
+    assert sl >= 2 and sl % 2 == 0 and csize * sl >= m
+    assert m == 0 and csize == 1 or (csize - 1) * sl < m
+    blocks = _nn_min_cover(n, m, k, csize, sl)
+    assert len(blocks) == -(-n // (32 * k)) * csize
+    groups = {}
+    for r0, r1, runs in blocks:
+        groups.setdefault((r0, r1), []).extend(runs)
+    ranges = sorted(groups)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    for runs in groups.values():
+        pos = 0
+        for lo, hi in sorted(runs):
+            assert lo == pos and hi > lo
+            pos = hi
+        assert pos == m
+    if (n, m) in PATH_SHAPES:
+        assert len(blocks) >= K.H100_SMS
+
+
 def test_wrappers_take_plain_version_on_cpu_without_counting():
     """On CPU tensors nn_cuda/nn_min_cuda return exactly the plain result
     and count no kernel launch."""
@@ -253,23 +371,59 @@ def test_nn_cuda_matches_plain_on_card(cuda_device, case):
     assert torch.equal(d_k, d_p)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows_n,m", [(20 * 768, 1792), (240 * 768, 768),
-                                      (30 * 768, 768), (151 * 768, 1792),
-                                      (32 * 768, 1792)],
-                         ids=["fine_sweep", "lc_coarse", "lc_fine",
-                              "no_imu_coarse", "no_imu_fine"])
-def test_nn_min_cuda_matches_plain_on_card(cuda_device, rows_n, m):
-    """nn_min_cuda against nn_min_plain at the submap fine sweep's shape,
-    at loop-closure verification's coarse and fine sweeps, and at the
-    no-IMU submap sweep's (151 angles over +-60 degrees, then 32)."""
+def _min_card_case(name):
+    """nn_min_cuda cases on the card: (rows, target, mask) as numpy, and
+    whether the target is to be a view that is not 16-byte aligned."""
     rng = np.random.default_rng(7)
-    rows = torch.as_tensor(rng.uniform(-20, 20, (rows_n, 2)).astype(np.float32),
-                           device=cuda_device)
-    tgt = torch.as_tensor(rng.uniform(-20, 20, (m, 2)).astype(np.float32),
-                          device=cuda_device)
-    msk = torch.as_tensor(rng.random(m) < 0.9, device=cuda_device)
-    d_k = K.nn_min_cuda(rows, tgt, msk)
-    d_p = K.nn_min_plain(rows, tgt, msk)
+
+    def cloud(n, lo=-20.0, hi=20.0):
+        return rng.uniform(lo, hi, (n, 2)).astype(np.float32)
+
+    shapes = dict(zip(["main_coarse", "main_fine", "no_imu_coarse",
+                       "no_imu_fine", "lc_coarse", "lc_fine"], PATH_SHAPES))
+    if name in shapes:
+        n, m = shapes[name]
+        return cloud(n), cloud(m), rng.random(m) < 0.9, False
+    if name == "M=0":
+        return cloud(300), np.zeros((0, 2), np.float32), np.zeros(0, bool), False
+    if name == "all-masked":
+        return cloud(300), cloud(1000), np.zeros(1000, bool), False
+    if name == "R=1":
+        return cloud(1), cloud(1792), rng.random(1792) < 0.9, False
+    if name == "M-odd":
+        return cloud(777), cloud(1791), rng.random(1791) < 0.9, False
+    if name == "misaligned":
+        return cloud(2000), cloud(1792), rng.random(1792) < 0.9, True
+    if name == "rows=targets":
+        t = cloud(1792)
+        return t.copy(), t, rng.random(1792) < 0.9, False
+    if name == "far":        # nearest d2 on both sides of BIG, none masked
+        return cloud(600, -1e16, 1e16), cloud(700, -1e16, 1e16), \
+            np.ones(700, bool), False
+    m = {"M=4096": 4096, "M=9000": 9000}[name]
+    return cloud(3000), cloud(m), rng.random(m) < 0.9, False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "main_coarse", "main_fine", "no_imu_coarse", "no_imu_fine", "lc_coarse",
+    "lc_fine", "M=0", "all-masked", "R=1", "M-odd", "misaligned",
+    "rows=targets", "M=4096", "M=9000", "far"])
+def test_nn_min_cuda_matches_plain_on_card(cuda_device, case):
+    """nn_min_cuda against nn_min_plain on the card, bit for bit, in one
+    launch: at the six sweep shapes (the IMU main path's coarse 13 x 768 and
+    fine 20 x 768 rows, the no-IMU path's 151 and 32 x 768, loop-closure
+    verification's 240 and 30 x 768) and at the edges of the kernel's
+    staging and geometry, where a d2 above BIG is kept as the plain
+    version keeps it."""
+    src, tgt, msk, misaligned = _min_card_case(case)
+    rows, g, m = (torch.as_tensor(a, device=cuda_device) for a in (src, tgt, msk))
+    if misaligned:
+        g = torch.as_tensor(np.concatenate([tgt[:1], tgt]), device=cuda_device)[1:]
+        assert g.data_ptr() % 16 == 8 and g.is_contiguous()
+    before = K.nn_min_launches
+    d_k = K.nn_min_cuda(rows, g, m)
+    d_p = K.nn_min_plain(rows, g, m)
     torch.cuda.synchronize()
-    torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=1e-5)
+    assert K.nn_min_launches == before + 1
+    assert torch.equal(d_k, d_p)
