@@ -44,7 +44,27 @@ Phases (any failed check ends the run with a non-zero exit code):
  10. drive the modular path (tpu.fused: false) with the features section
      on the first 48 scans; check both counters > 0, positions within
      0.01 m of phase 8's over the first 10 poses and submap corrections
-     within 1 of phase 8's over the same scans.
+     within 1 of phase 8's over the same scans;
+ 11. icp_large at 100k points in benchmarks/bench_suite.py's configuration
+     (its 100k-point world, seed 11; theta 0.04, t (0.4, -0.25); a 160 x
+     160 grid, cell and query caps 64, 4096 query cells, 30 iterations),
+     point-to-point and point-to-line: check the yaw within 2e-3 rad; print
+     ms per alignment (3 warm repetitions), iterations, drops, and each
+     dense-grid op's time by CUDA events beside its bound;
+ 12. the scaled pipeline (ScaledPipeline, BASELINE config #5) at
+     benchmarks/bench_scaled.py's full width, 100k-point scans, cut to 400
+     of its 1,200 scans, counters reset just before: check 400 poses, >= 1
+     closure, >= 1 BA run, both counters > 0, finite poses and map, the map
+     clean after optimize(15), and ATE <= 0.15 m after it; print scans/s,
+     ATE while streaming, the stats, the wall split, kernel launches per
+     loop-closure check and peak device memory; then time the parts of
+     12 scaled scans (each step, icp_large and compact_nn synchronized).
+Phases 11-12 run after phase 7 and before phases 8-10, whose torch.profiler
+window slows what comes after it; a profile of 12 scaled scans comes last.
+Phases 3 and 5 also hold the kernels at that run's loop-closure shapes:
+nn_cuda at 8192 x 8192 and nn_min_cuda at 983,040 and 98,304 x 8192, each
+compared with its plain version in row chunks (the plain version at once
+would need 32 GB).
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Imports neither jax nor icp_tpu nor yaml.
 """
@@ -106,6 +126,15 @@ FEAT_SECTION = {"method": "features", "rotation_voxel_size": 0.15,
 FEAT_ATE_BOUND_M = 0.050  # icp_tpu scores 0.0430 m (no IMU, CPU battery)
 MODULAR_SCANS = 48        # phase 10's depth (scans after the first)
 MIN_POSES = 190           # of the 199 scans after the first
+# the scaled pipeline's loop-closure lanes (kf_capacity 8192): rotation
+# search over 120 coarse (3 degrees) and 12 fine (0.5 degrees) angles, then
+# two ICP passes at 8192 x 8192
+KF_CAP = 8192
+LC8K_SWEEP_ROWS = (120 * KF_CAP, 12 * KF_CAP)
+PLAIN_CHUNK = 32768       # rows a plain-version call at the 8192-target shapes
+ICP_LARGE_YAW_TOL = 2e-3  # bench_suite.py's own assertion
+SCALED_SCANS = 400        # of bench_scaled.py's 1,200 (icp_tpu's published run)
+SCALED_ATE_BOUND_M = 0.15  # icp_tpu's 400-scan run: 0.078 m (BENCHMARKS.md:15)
 
 
 def log(*a):
@@ -119,11 +148,11 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, iters=100):
+def time_ms(fn, iters=100, warmup=5):
     """Mean ms per call of fn() over ``iters`` back-to-back calls between
     two CUDA events: where the host launches slower than the device runs,
     the host's launch gaps count."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -144,7 +173,7 @@ def graph_ms(fn, calls=20, replays=10):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(min(3, calls)):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -236,6 +265,33 @@ def nn_min_cases(rng, sweep_shapes):
     return cases
 
 
+def lc8k_cases(rng):
+    """(key, label, rows, tgt, mask) at the scaled pipeline's loop-closure
+    shapes: clouds within +-35 m (the max range), 60 % of the 8192 slots
+    valid (a voxelized keyframe fills part of its capacity); the targets
+    repeat a block of themselves, so ties cross the kernels' slices."""
+    tgt = _cloud(rng, KF_CAP, -35.0, 35.0)
+    tgt[6000:] = tgt[:KF_CAP - 6000]
+    msk = rng.random(KF_CAP) < 0.6
+    cases = [("nn", "LC8k ICP", _cloud(rng, KF_CAP, -35.0, 35.0), tgt, msk)]
+    for label, rows in zip(("LC8k coarse", "LC8k fine"), LC8K_SWEEP_ROWS):
+        cases.append(("nn_min", label, _cloud(rng, rows, -35.0, 35.0), tgt,
+                      msk))
+    return cases
+
+
+def chunked(plain):
+    """plain(rows, tgt, mask) taken PLAIN_CHUNK rows at a time: the same
+    answer (rows are independent) without the (rows, M) matrix at once."""
+    def run(rows, tgt, msk):
+        outs = [plain(rows[c0:c0 + PLAIN_CHUNK], tgt, msk)
+                for c0 in range(0, rows.shape[0], PLAIN_CHUNK)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
+    return run
+
+
 def imu_sweep_rows(cfg, src_cap):
     """Rows of the IMU main path's submap sweep: the coarse pass over
     +-imu_narrow at 0.5 degrees, then _fine_count(0.5, fine step) angles."""
@@ -310,6 +366,32 @@ def check_kernels(dev, sweep_shapes) -> dict:
         log(f"  nn_min_cuda {label} {shape} (geometry k, cluster, slice "
             f"{K.nn_min_geometry(rows.shape[0], tgt.shape[0], sms)}): bit-equal")
 
+    # the scaled pipeline's loop-closure shapes, against the plain version
+    # in row chunks
+    for key, label, rows, tgt, msk in lc8k_cases(rng):
+        r, g, m = t(rows), t(tgt), t(msk)
+        kern = K.nn_cuda if key == "nn" else K.nn_min_cuda
+        plain = chunked(K.nn_plain if key == "nn" else K.nn_min_plain)
+        before = (K.nn_launches, K.nn_min_launches)
+        got = kern(r, g, m)
+        after = (K.nn_launches, K.nn_min_launches)
+        want = plain(r, g, m)
+        torch.cuda.synchronize()
+        shape = f"{rows.shape[0]}x{tgt.shape[0]}"
+        assert sum(after) == sum(before) + 1, f"{key} launches: {label} {shape}"
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), f"{key} not bit-equal to plain: {label} {shape}"
+        err[key] = max(err[key], float((got[0] - want[0]).abs().max()))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        geo = (f" (geometry k, cluster, slice "
+               f"{K.nn_min_geometry(rows.shape[0], tgt.shape[0], sms)})"
+               if key == "nn_min" else "")
+        log(f"  {'nn_cuda' if key == 'nn' else 'nn_min_cuda'} {label} {shape}"
+            f"{geo}: bit-equal to the plain version in row chunks of "
+            f"{PLAIN_CHUNK}")
+
     # icp_core with the kernel ("auto") against the plain query ("xla")
     tgt = rng.uniform(-5, 5, (768, 2)).astype(np.float32)
     th = 0.05
@@ -343,9 +425,11 @@ def kernel_bound(key, n, m):
 
 def time_kernels(dev, scan_cap, submap_cap, sweep_shapes, card) -> dict:
     """Each kernel against its plain version at the paths' shapes (nn_cuda
-    at scan x scan and scan x submap capacity, nn_min_cuda at each of
-    ``sweep_shapes``), in turns (plain, kernel, kernel, plain) by both
-    measures: CUDA events around 100 back-to-back calls (the host's launch
+    at scan x scan and scan x submap capacity and at the scaled pipeline's
+    8192 x 8192, nn_min_cuda at each of ``sweep_shapes`` and at 983,040 and
+    98,304 x 8192), in turns (plain, kernel, kernel, plain) by both
+    measures: CUDA events around back-to-back calls (100; 5 at the 8192
+    shapes, where the plain version runs in row chunks; the host's launch
     gaps count) and CUDA-graph replays (device only), beside the shape's
     bound and the device time's share of it. Returns {key: {shape:
     figures}}."""
@@ -357,23 +441,33 @@ def time_kernels(dev, scan_cap, submap_cap, sweep_shapes, card) -> dict:
         return torch.as_tensor(a, device=dev)
 
     s = t(_cloud(rng, scan_cap))
+    small = ({}, {})                 # the timers' default counts
     runs = [("nn", K.nn_cuda, K.nn_plain, (s, t(_cloud(rng, m)),
-                                           t(rng.random(m) < 0.9)))
+                                           t(rng.random(m) < 0.9)), small)
             for m in (scan_cap, submap_cap)]
     runs += [("nn_min", K.nn_min_cuda, K.nn_min_plain,
-              (t(_cloud(rng, r)), t(_cloud(rng, m)), t(rng.random(m) < 0.9)))
+              (t(_cloud(rng, r)), t(_cloud(rng, m)), t(rng.random(m) < 0.9)),
+              small)
              for r, m in sweep_shapes.values()]
+    # the scaled pipeline's loop-closure shapes: fewer calls (the plain
+    # version takes ~0.1 s a call there), the plain version in row chunks
+    big = (dict(iters=5, warmup=1), dict(calls=2, replays=2))
+    runs += [(key, K.nn_cuda if key == "nn" else K.nn_min_cuda,
+              chunked(K.nn_plain if key == "nn" else K.nn_min_plain),
+              (t(rows), t(tgt), t(msk)), big)
+             for key, _, rows, tgt, msk in lc8k_cases(rng)]
     timings = {}
-    for key, kern, plain, args in runs:
+    for key, kern, plain, args, counts in runs:
         n, m = args[0].shape[0], args[1].shape[0]
         shape = f"{n}x{m}"
         bound_ms, bound_by = kernel_bound(key, n, m)
         fig = {"bound_ms": bound_ms, "bound_by": bound_by}
-        for measure, timer in (("", time_ms), ("device_", graph_ms)):
-            p1 = timer(lambda: plain(*args))
-            k1 = timer(lambda: kern(*args))
-            k2 = timer(lambda: kern(*args))
-            p2 = timer(lambda: plain(*args))
+        for measure, timer, kw in (("", time_ms, counts[0]),
+                                   ("device_", graph_ms, counts[1])):
+            p1 = timer(lambda: plain(*args), **kw)
+            k1 = timer(lambda: kern(*args), **kw)
+            k2 = timer(lambda: kern(*args), **kw)
+            p2 = timer(lambda: plain(*args), **kw)
             fig[f"{measure}ms"] = (k1 + k2) / 2
             fig[f"plain_{measure}ms"] = (p1 + p2) / 2
             log(f"{key} at {shape}, {'device only (CUDA graph)' if measure else 'CUDA events'}: "
@@ -617,6 +711,346 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
     return launches
 
 
+def _large_world(n_points=100_000, seed=11):
+    """benchmarks/bench_suite.py's 100k-point world: random wall segments in
+    a 200 m arena (a copy: benchmarks/ is not imported here)."""
+    rng = np.random.default_rng(seed)
+    n_walls = 200
+    starts = rng.uniform(-100, 100, (n_walls, 2))
+    horiz = rng.integers(0, 2, n_walls).astype(bool)
+    lengths = rng.uniform(10, 30, n_walls)
+    per = n_points // n_walls
+    pts = []
+    for s, h, L in zip(starts, horiz, lengths):
+        t = rng.uniform(0, L, per)
+        pts.append(np.stack([s[0] + np.where(h, t, 0.0),
+                             s[1] + np.where(h, 0.0, t)], axis=1))
+    cloud = np.concatenate(pts).astype(np.float32)
+    cloud += rng.normal(scale=0.02, size=cloud.shape).astype(np.float32)
+    return cloud
+
+
+def compact_nn_bound(cq, grid):
+    """(bound_ms, bound_by, pairs) of one compact_nn call on this data: 6
+    flops for each (valid query, valid target of its 3x3 cells) pair, and
+    the bytes it must move: each valid query's x, y read and its d2, idx,
+    x, y written, each valid target of a cell next to an occupied query
+    cell read once (x, y, idx), each occupied row's cell read."""
+    cnt = grid.mask.sum(-1)                          # (Cy+2, Cx+2)
+    Cy, Cx = cnt.shape[0] - 2, cnt.shape[1] - 2
+    rows = cq.cell_mask
+    cy = cq.cell_yx[rows, 0].long()
+    cx = cq.cell_yx[rows, 1].long()
+    nq = cq.mask[rows].sum(1)
+    used = torch.zeros_like(cnt, dtype=torch.bool)
+    nt = torch.zeros_like(nq)
+    for dy in range(3):
+        for dx in range(3):
+            used[cy + dy, cx + dx] = True
+            nt = nt + cnt[cy + dy, cx + dx]
+    pairs = int((nq * nt).sum())
+    n_q = int(nq.sum())
+    n_bytes = 24 * n_q + 12 * int(cnt[used].sum()) + 8 * int(rows.sum())
+    ops_ms = 1e3 * FLOPS_PER_PAIR * pairs / PEAK_F32_FLOPS
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_S
+    assert Cy > 0 and Cx > 0
+    return ((ops_ms, "operations", pairs) if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes", pairs))
+
+
+def grid_op_bounds(grid, cq, n_points):
+    """Bytes bounds (ms) of the other dense-grid ops, which sort and move
+    data: each input read once and each output written once at
+    PEAK_BYTES_S. build_dense_grid reads n points (x, y, mask) and writes
+    the padded grid's x, y, idx and mask planes; bin_queries reads n
+    queries and writes the compact planes, cell_yx and cell_mask;
+    cell_normals reads the grid's x, y and mask planes and writes nx, ny
+    and valid per cell."""
+    slots = grid.x.numel()
+    cy, cx = grid.x.shape[0] - 2, grid.x.shape[1] - 2
+    qslots = cq.x.numel()
+    by = {"build_dense_grid": 9 * n_points + 13 * slots,
+          "bin_queries": 9 * n_points + 13 * qslots + 9 * cq.cell_mask.numel(),
+          "cell_normals": 9 * slots + 9 * cy * cx}
+    return {k: 1e3 * v / PEAK_BYTES_S for k, v in by.items()}
+
+
+def icp_large_phase(dev, card, n_points=100_000) -> dict:
+    """Phase 11: icp_large at 100k points, bench_suite's configuration."""
+    from icp_tpu_torch.models.icp import _row_bound, icp_large
+    from icp_tpu_torch.ops import densegrid as DG
+    from icp_tpu_torch.utils.masking import pad_points
+
+    base = _large_world(n_points)
+    th = 0.04
+    c, s = np.cos(th), np.sin(th)
+    R_true = np.array([[c, -s], [s, c]], np.float32)
+    t_true = np.array([0.4, -0.25], np.float32)
+    src = (base - t_true) @ R_true
+    cap = 131072
+    sp, sm, tp, tm = (torch.as_tensor(a, device=dev)
+                      for a in (*pad_points(src, cap), *pad_points(base, cap)))
+    eye = torch.eye(2, device=dev)
+    zero = torch.zeros(2, device=dev)
+    kw = dict(max_corr_dist=1.0, max_iterations=30, error_threshold=0.0,
+              grid_shape=(160, 160), cap=64, qcap=64, qcells=4096)
+    out = {}
+    for method in ("point_to_point", "point_to_line"):
+        res = icp_large(sp, sm, tp, tm, eye, zero, method=method, **kw)
+        got = float(torch.atan2(res.R[1, 0], res.R[0, 0]))
+        assert abs(got - th) < ICP_LARGE_YAW_TOL, (method, got)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            res = icp_large(sp, sm, tp, tm, eye, zero, method=method, **kw)
+            float(res.error)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 3
+        # each dense-grid op at the recovered pose, by CUDA events
+        cell = torch.tensor(1.5, device=dev)
+        origin = DG.grid_origin(tp, tm, cell)
+        grid = DG.build_dense_grid(tp, tm, cell, origin, grid_shape=(160, 160),
+                                   cap=64)
+        moved = sp @ res.R.T + res.t
+        cq = DG.bin_queries(moved, sm, origin, cell, grid_shape=(160, 160),
+                            qcells=4096, qcap=64)
+        rows = _row_bound(int(cq.cell_mask.sum()), 4096)
+        ops = {
+            "build_dense_grid": lambda: DG.build_dense_grid(
+                tp, tm, cell, origin, grid_shape=(160, 160), cap=64),
+            "bin_queries": lambda: DG.bin_queries(
+                moved, sm, origin, cell, grid_shape=(160, 160), qcells=4096,
+                qcap=64),
+            "compact_nn": lambda: DG.compact_nn(cq, grid, rows),
+        }
+        if method == "point_to_line":
+            ops["cell_normals"] = lambda: DG.cell_normals(grid)
+        op_ms = {name: time_ms(fn, iters=20, warmup=2) for name, fn in ops.items()}
+        bound_ms, bound_by, pairs = compact_nn_bound(cq, grid)
+        op_bound = {"compact_nn": bound_ms, **grid_op_bounds(grid, cq, cap)}
+        fig = {"ms": ms, "iters": int(res.iters), "dropped": int(res.dropped),
+               "yaw": got, "op_ms": op_ms, "op_bound_ms": op_bound,
+               "compact_nn_rows": rows,
+               "compact_nn_pairs": pairs, "compact_nn_bound_ms": bound_ms,
+               "compact_nn_bound_by": bound_by,
+               "occupied_rows": int(cq.cell_mask.sum()),
+               "valid_queries": int(cq.mask.sum())}
+        out[method] = fig
+        log(f"icp_large 100k {method}: {ms:.2f} ms an alignment (3 warm "
+            f"repetitions, host clock to synchronize), {fig['iters']} "
+            f"iterations, {fig['dropped']} dropped, yaw {got:.5f} (true {th}) "
+            f"on {card}")
+        log(f"  ops by CUDA events (bound, share): " + ", ".join(
+            f"{k} {v:.3f} ms ({1e3 * op_bound[k]:.2f} us, "
+            f"{100 * op_bound[k] / v:.2f} %)" for k, v in op_ms.items())
+            + f"; compact_nn over {rows} of 4096 rows ({fig['occupied_rows']} "
+            f"occupied, {fig['valid_queries']} valid queries, {pairs} pairs): "
+            f"bound {1e3 * bound_ms:.2f} us ({bound_by}), "
+            f"{100 * bound_ms / op_ms['compact_nn']:.2f} % of it")
+    return out
+
+
+def make_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000):
+    """The scaled pipeline at benchmarks/bench_scaled.py's configuration,
+    every capacity unchanged, and its scan stream as the bench makes it."""
+    from icp_tpu_torch.parallel.scaled import ScaledPipeline
+    from icp_tpu_torch.utils.synth import large_scan_stream
+
+    cap = 1 << int(np.ceil(np.log2(n_points)))
+    pipe = ScaledPipeline(
+        dev, scan_capacity=cap, extent=100.0, map_resolution=0.25,
+        map_margin=10.0, max_range=35.0, icp_max_corr=1.0,
+        icp_max_iterations=30, icp_method="point_to_line",
+        icp_grid_shape=(160, 160), icp_cell_cap=64, icp_qcells=8192,
+        map_ray_stride=8, kf_capacity=KF_CAP, kf_voxel=0.3,
+        submap_keyframes=8, lc_every=8, lc_min_interval=max(50, n_scans // 10),
+        lc_distance=15.0, lc_min_travel=60.0, lc_error_threshold=0.05,
+        lc_max_candidates=4, ba_every=1, lc_info_cap=1e3, lc_robust=True,
+        lc_cooldown=25, ba_iterations=10, replay_chunk=64,
+        dist_node_threshold=2)
+    stream = large_scan_stream(n_scans, n_points=n_points, extent=100.0,
+                               max_range=35.0, noise=0.02, seed=3,
+                               trajectory="loop")
+    return pipe, stream
+
+
+def run_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000):
+    """Drive the scaled pipeline over the stream as bench_scaled.py does.
+    Returns (pipeline, ground truth, scans/s after 3 warm scans)."""
+    pipe, stream = make_scaled(dev, n_scans, n_points)
+    pipe.warm_replay()
+    gt = []
+    warm, t0 = 3, None
+    for k, (scan, g) in enumerate(stream):
+        gt.append(g)
+        pipe.step(scan)
+        if k + 1 == warm:          # as bench_scaled.py starts its clock
+            pipe.log_odds[:1, :1].cpu()
+            t0 = time.perf_counter()
+    pipe.finish()
+    pipe.log_odds[:1, :1].cpu()
+    return pipe, np.stack(gt), (n_scans - warm) / (time.perf_counter() - t0)
+
+
+def scaled_breakdown(dev, card, n_scans=24, window=12) -> dict:
+    """Where a scaled scan's time goes: the first n_scans of the stream,
+    each step timed by the host clock ending in synchronize(), each
+    icp_large call likewise, and each compact_nn call by CUDA events
+    (launch gaps included), over the last ``window`` scans."""
+    import icp_tpu_torch.ops.densegrid as DG
+    import icp_tpu_torch.parallel.scaled as SC
+
+    real_icp, real_nn = SC.icp_large, DG.compact_nn
+    rec = {"icp": [], "nn": []}
+
+    def icp_timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_icp(*a, **k)
+        torch.cuda.synchronize()
+        rec["icp"].append(time.perf_counter() - t0)
+        return out
+
+    def nn_timed(cq, grid, rows=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_nn(cq, grid, rows)
+        ev[1].record()
+        rec["last"] = (cq, grid)
+        rec["nn"].append((ev, rows, len(rec["icp"])))   # scan = that + 1
+        return out
+
+    SC.icp_large, DG.compact_nn = icp_timed, nn_timed
+    try:
+        pipe, stream = make_scaled(dev, n_scans)
+        gen, step = [], []
+        for k in range(n_scans):
+            t0 = time.perf_counter()
+            scan, _ = next(stream)
+            t1 = time.perf_counter()
+            pipe.step(scan)
+            torch.cuda.synchronize()
+            gen.append(t1 - t0)
+            step.append(time.perf_counter() - t1)
+    finally:
+        SC.icp_large, DG.compact_nn = real_icp, real_nn
+    torch.cuda.synchronize()
+    first = n_scans - window               # the window's first scan index
+    icp_ms = 1e3 * float(np.mean(rec["icp"][first - 1:]))   # scan 0 has none
+    nn = [(e[0].elapsed_time(e[1]), rows) for e, rows, i in rec["nn"]
+          if i + 1 >= first]               # calls inside the window's scans
+    nn_per_scan = len(nn) / window
+    nn_ms = float(np.mean([m for m, _ in nn]))
+    step_ms = 1e3 * float(np.mean(step[first:]))
+    gen_ms = 1e3 * float(np.mean(gen[first:]))
+    nn_bound, nn_by, pairs = compact_nn_bound(*rec["last"])
+    out = {"step_ms": step_ms, "gen_ms": gen_ms, "icp_large_ms": icp_ms,
+           "compact_nn_bound_ms": nn_bound, "compact_nn_bound_by": nn_by,
+           "compact_nn_pairs": pairs,
+           "compact_nn_ms": nn_ms, "compact_nn_calls_per_scan": nn_per_scan,
+           "compact_nn_rows": float(np.mean([r for _, r in nn])),
+           "icp_share": icp_ms / step_ms,
+           "compact_nn_share": nn_ms * nn_per_scan / step_ms}
+    log(f"scaled scan breakdown (scans {first}-{n_scans - 1}, synchronized "
+        f"after each step): step {step_ms:.2f} ms + scan generation "
+        f"{gen_ms:.2f} ms on the host; icp_large {icp_ms:.2f} ms "
+        f"({100 * out['icp_share']:.1f} % of the step); compact_nn "
+        f"{nn_ms:.3f} ms a call by CUDA events x {nn_per_scan:.1f} calls "
+        f"({100 * out['compact_nn_share']:.1f} % of the step), "
+        f"{out['compact_nn_rows']:.0f} rows a call; the last call's bound "
+        f"{1e3 * nn_bound:.2f} us ({nn_by}, {pairs} pairs), "
+        f"{100 * nn_bound / nn_ms:.2f} % of the mean call, on {card}")
+
+    return out
+
+
+def scaled_profile(dev, card, n_scans=24, window=12) -> dict:
+    """Device kernel time of the scans scaled_breakdown times, by
+    torch.profiler on a fresh pipeline (run last: a profiler window slows
+    what comes after it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    first = n_scans - window
+    out = {}
+    pipe, stream = make_scaled(dev, n_scans)
+    scans = [next(stream)[0] for _ in range(n_scans)]
+    for sc in scans[:first]:
+        pipe.step(sc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for sc in scans[first:]:
+            pipe.step(sc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device's kernel events (not the ops that launched them)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out["profiled_wall_ms"] = 1e3 * wall / window
+    out["device_ms"] = sum(by_name.values()) / 1e3 / window
+    log(f"scaled scans {first}-{n_scans - 1} profiled: "
+        f"{out['profiled_wall_ms']:.2f} ms a step (profiler on), device "
+        f"kernel time {out['device_ms']:.2f} ms a step "
+        f"({100 * out['device_ms'] / out['profiled_wall_ms']:.1f} % busy) on "
+        f"{card}; top kernels a step: " + "; ".join(
+            f"{name[:60]} {us / 1e3 / window:.3f} ms" for name, us in top))
+    return out
+
+
+def scaled_phase(dev, card) -> dict:
+    """Phase 12: the scaled pipeline at full width, 400 scans."""
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+    from icp_tpu_torch.utils.metrics import ate
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe, gt, sps = run_scaled(dev)
+    ate_stream = ate(np.stack(pipe.trajectory), gt, gt_offset=0)
+    pipe.optimize(n_iterations=15)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    traj = np.stack(pipe.trajectory)
+    ate_ba = ate(traj, gt, gt_offset=0)
+    st = pipe.stats
+    peak = torch.cuda.max_memory_allocated(dev)
+    checks = max(st.lc_checked, 1)
+    log(f"scaled pipeline: {len(traj)} poses, {sps:.2f} scans/s after 3 warm "
+        f"scans (host scan generation inside, as bench_scaled.py), "
+        f"{wall:.1f} s for the phase, on {card}")
+    log(f"  ATE {ate_stream:.4f} m streaming -> {ate_ba:.4f} m after the "
+        f"terminal BA (bound {SCALED_ATE_BOUND_M} m); loop_closures="
+        f"{st.loop_closures} lc_checked={st.lc_checked} lc_candidates="
+        f"{st.lc_candidates} ba_runs={st.ba_runs} gate_fallbacks="
+        f"{st.gate_fallbacks} reg_dropped_points={st.reg_dropped_points} "
+        f"replayed_keyframes={st.replayed_keyframes} icp_iters={st.icp_iters}")
+    log(f"  wall: registration {st.wall_registration:.2f} s, lc "
+        f"{st.wall_lc:.2f} s, ba {st.wall_ba:.2f} s, replay "
+        f"{st.wall_replay:.2f} s (fill {st.wall_replay_fill:.2f} s); "
+        f"launches {launches}, per loop-closure check nn "
+        f"{launches['nn'] / checks:.1f} nn_min {launches['nn_min'] / checks:.1f}; "
+        f"peak device memory {peak / 2**30:.2f} GiB; grid {pipe.ny}x{pipe.nx}")
+    lo = pipe.log_odds
+    assert len(traj) == SCALED_SCANS, f"{len(traj)} poses"
+    assert np.isfinite(traj).all(), "non-finite pose (scaled)"
+    assert bool(torch.isfinite(lo).all()), "non-finite map (scaled)"
+    assert int((lo != 0).sum()) > 0, "empty map (scaled)"
+    assert st.loop_closures >= 1, "no loop closure accepted (scaled)"
+    assert st.ba_runs >= 1, "no bundle adjustment (scaled)"
+    assert not pipe._map_dirty, "map still dirty after optimize (scaled)"
+    assert launches["nn"] > 0 and launches["nn_min"] > 0, launches
+    assert ate_ba <= SCALED_ATE_BOUND_M, \
+        f"scaled ATE {ate_ba:.4f} m > {SCALED_ATE_BOUND_M} m"
+    return {"launches": launches, "sps": sps, "ate_stream": ate_stream,
+            "ate": ate_ba, "peak_bytes": peak,
+            "stats": {k: v for k, v in st.__dict__.items()}}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -734,9 +1168,18 @@ def main():
     # ── 7. pose-graph solve timings ──────────────────────────────────────
     time_pose_graph(dev, card)
 
+    # ── 11. icp_large at 100k points ─────────────────────────────────────
+    icp_large_phase(dev, card)
+
+    # ── 12. the scaled pipeline (BASELINE config #5), 400 scans ──────────
+    scaled = scaled_phase(dev, card)
+    scaled_breakdown(dev, card)
+
     # ── 8-10. the features path, "both" with loop closure, modular ───────
     launches_feat = features_phases(SlamConfig, ate, dev, card, gt, scans,
                                     rels, imu, ate_m)
+    launches_feat["scaled"] = scaled["launches"]
+    scaled_profile(dev, card)
     kernels = []
     # the top-level figures are those of the main path's heaviest call: the
     # submap ICP's query and the submap sweep's fine pass
@@ -755,6 +1198,8 @@ def main():
                                  **{path: n[key]
                                     for path, n in launches_feat.items()}},
             "launches_per_main_scan": launches[key] / n_steps,
+            "launches_per_scaled_lc_check":
+                scaled["launches"][key] / max(scaled["stats"]["lc_checked"], 1),
             "max_abs_err": err[key], "shape": tops[key],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "device_ms": top["device_ms"],

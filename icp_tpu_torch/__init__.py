@@ -8,12 +8,13 @@ CUDA kernels for Hopper (``csrc/nn_kernel.cu``, bound in
 torch here.
 
 Layout:
-  ops/       masked tensor ops (NN, voxel, eig2x2, rigid solves, RANSAC,
-             sweeps, raytrace) + ops/hopper (CUDA kernels, their build and
-             bindings)
-  models/    ICP, pre-alignment (rotation search, features/RANSAC),
+  ops/       masked tensor ops (NN, dense-grid NN, voxel, eig2x2, rigid
+             solves, RANSAC, sweeps, raytrace) + ops/hopper (CUDA
+             kernels, their build and bindings)
+  models/    ICP (brute force and dense-grid icp_large), pre-alignment (rotation search, features/RANSAC),
              occupancy grid (with replay), SE(2) pose graph, fused SLAM step
-  parallel/  the single-device matrix-free PCG pose-graph solve
+  parallel/  the single-device matrix-free PCG pose-graph solve and the
+             scaled pipeline (BASELINE config #5) on one device
   services/  lidar/IMU CSV ingestion (numpy)
   utils/     SE(2) transforms, masking, config, synthetic data, metrics
   engine.py  streaming SLAM engine (fused batched path, modular path, loop

@@ -5,7 +5,9 @@ schema), optionally write a synthetic sequence first (``--synth``), run
 SLAM on ``--device`` (default cuda), loop closure included where the
 config enables it, and save the occupancy grid; ``--checkpoint`` saves the
 whole SLAM state at the end and ``--resume`` restores one first (the npz
-of either package).
+of either package). ``--scaled`` runs the scaled pipeline
+(parallel/scaled.py, BASELINE config #5) on one device instead of the
+engine, with its knobs under the config's ``scaled:`` section.
 """
 from __future__ import annotations
 
@@ -36,6 +38,12 @@ def main(argv=None):
     parser.add_argument("--synth-scans", type=int, default=200)
     parser.add_argument("--synth-beams", type=int, default=720)
     parser.add_argument("--synth-noise", type=float, default=0.005)
+    parser.add_argument("--scaled", action="store_true",
+                        help="run the scaled pipeline (parallel/scaled.py: "
+                             "scan-to-submap registration, map allocated up "
+                             "front, online BA) on one device instead of "
+                             "the engine; knobs under the config's "
+                             "`scaled:` section")
     args = parser.parse_args(argv)
 
     from icp_tpu_torch.utils.config import SlamConfig
@@ -54,6 +62,9 @@ def main(argv=None):
         np.save(cfg.data_file + ".gt.npy", gt)
         print(f"synthetic sequence written: {cfg.data_file} "
               f"({args.synth_scans} scans)")
+
+    if args.scaled:
+        return _run_scaled(cfg, args)
 
     from icp_tpu_torch.engine import run_slam
 
@@ -83,6 +94,119 @@ def main(argv=None):
 
     if args.checkpoint:
         engine.save_checkpoint(args.checkpoint)
+        print(f"checkpoint saved: {args.checkpoint}")
+
+
+def _run_scaled(cfg, args):
+    """Drive the scaled pipeline from the same config and CSV inputs as the
+    engine. Reference-schema knobs map across (mapping / loop_closure
+    sections); scale knobs live under ``scaled:`` (extent, the world
+    half-size of the grid allocated up front; submap_keyframes;
+    kf_capacity / kf_voxel; the icp_* capacities; ba_every; replay_chunk)."""
+    from icp_tpu_torch.engine import filter_and_flatten
+    from icp_tpu_torch.parallel.scaled import ScaledPipeline
+    from icp_tpu_torch.services.lidar import LidarService
+    from icp_tpu_torch.utils.masking import next_pow2
+
+    sc = (cfg.raw.get("scaled") or {}) if isinstance(cfg.raw, dict) else {}
+
+    def stream():
+        """One pass over the CSV. Degenerate scans still step (the
+        agreement gate dead-reckons through them), so trajectory row k
+        stays aligned with input scan k."""
+        for _, _, raw in LidarService(cfg.data_file).scans():
+            pts = filter_and_flatten(raw, cfg.z_min, cfg.z_max)
+            if pts.shape[0] == 0:
+                pts = np.zeros((1, 2), np.float32)
+            yield pts
+    # capacity prepass only when the scaled: section does not pin them
+    if "scan_capacity" in sc and "max_range" in sc:
+        max_pts, max_rng = 8, float(sc["max_range"])
+    else:
+        max_pts, max_rng, count = 8, 1.0, 0
+        for pts in stream():
+            count += 1
+            max_pts = max(max_pts, pts.shape[0])
+            max_rng = max(max_rng,
+                          float(np.max(np.linalg.norm(pts, axis=1))))
+        if count == 0:
+            raise SystemExit(f"no scans in {cfg.data_file}")
+
+    method = sc.get("icp_method", cfg.icp_method
+                    if cfg.icp_method in ("point_to_point", "point_to_line")
+                    else "point_to_line")
+    kw = dict(
+        scan_capacity=int(sc.get("scan_capacity", next_pow2(max_pts))),
+        extent=float(sc.get("extent", 100.0)),
+        map_resolution=cfg.map_resolution,
+        map_margin=cfg.map_margin,
+        max_range=float(sc.get("max_range", max_rng * 1.1)),
+        icp_max_corr=float(sc.get("icp_max_corr", 1.0)),
+        icp_max_iterations=int(sc.get("icp_max_iterations", 30)),
+        icp_method=method,
+        icp_grid_shape=tuple(sc.get("icp_grid_shape", (160, 160))),
+        icp_cell_cap=int(sc.get("icp_cell_cap", 64)),
+        icp_qcells=int(sc.get("icp_qcells", 8192)),
+        p_hit=cfg.p_hit, p_miss=cfg.p_miss,
+        log_odds_min=cfg.log_odds_min, log_odds_max=cfg.log_odds_max,
+        map_ray_stride=int(sc.get("map_ray_stride", 1)),
+        kf_capacity=int(sc.get("kf_capacity", 8192)),
+        kf_voxel=float(sc.get("kf_voxel", max(cfg.map_resolution, 0.1))),
+        submap_keyframes=int(sc.get("submap_keyframes", 8)),
+        replay_chunk=int(sc.get("replay_chunk", 32)),
+    )
+    if cfg.lc_enabled:
+        kw.update(
+            lc_every=int(sc.get("lc_every", 8)),
+            lc_min_interval=int(cfg.lc_min_interval),
+            lc_distance=float(cfg.lc_distance),
+            lc_min_travel=float(cfg.lc_min_travel),
+            lc_error_threshold=float(cfg.lc_error_threshold),
+            lc_max_candidates=int(cfg.lc_max_candidates),
+            lc_info_scale=float(cfg.lc_info_scale),
+            lc_info_cap=float(cfg.lc_info_cap),
+            lc_robust=bool(cfg.lc_robust),
+            lc_robust_phi=float(cfg.lc_robust_phi),
+            lc_cooldown=int(cfg.lc_cooldown),
+            ba_every=int(sc.get("ba_every", 1)),
+        )
+    else:
+        kw.update(lc_min_interval=10 ** 9)     # loop closure disabled
+    pipe = ScaledPipeline(args.device, **kw)
+    if cfg.lc_enabled:
+        pipe.warm_replay()
+
+    for k, pts in enumerate(stream()):
+        pipe.step(pts)
+        if not args.quiet and (k + 1) % 25 == 0:
+            print(f"scan {k + 1}  "
+                  f"lc={pipe.stats.loop_closures} ba={pipe.stats.ba_runs}")
+    pipe.finish()
+    if cfg.lc_enabled:
+        pipe.optimize(n_iterations=cfg.lc_opt_iters)
+
+    s = pipe.stats
+    print(f"scans={s.scans} loop_closures={s.loop_closures} "
+          f"ba_runs={s.ba_runs} gate_fallbacks={s.gate_fallbacks} "
+          f"icp_iters={s.icp_iters}")
+    print(f"wall: registration={s.wall_registration:.2f}s "
+          f"lc={s.wall_lc:.2f}s ba={s.wall_ba:.2f}s "
+          f"replay={s.wall_replay:.2f}s")
+    prob = pipe.map_probability()
+    for path in (cfg.out_csv, cfg.out_npy):
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+    np.savetxt(cfg.out_csv, prob, delimiter=",", fmt="%.4f")
+    np.save(cfg.out_npy, prob)
+    print(f"map saved: {cfg.out_csv}, {cfg.out_npy} "
+          f"({pipe.ny}x{pipe.nx} cells)")
+    if args.save_traj and pipe.trajectory:
+        np.save(args.save_traj, np.stack(pipe.trajectory))
+        print(f"trajectory saved: {args.save_traj} "
+              f"({len(pipe.trajectory)} poses)")
+    if args.checkpoint:
+        pipe.save_checkpoint(args.checkpoint)
         print(f"checkpoint saved: {args.checkpoint}")
 
 

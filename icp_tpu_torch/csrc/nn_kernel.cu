@@ -97,7 +97,8 @@
 //   target feeds K independent min chains; the 8 warps of a block share
 //   its 32 K rows and split its slice of the targets, and the csize <= 8
 //   blocks of a cluster split the targets into slices. A block stages its
-//   slice once (2048 targets a pass; every path's fits) as float4 pairs,
+//   slice (2048 targets a pass; the scaled pipeline's 8192-target slices
+//   take 2-4 passes) as float4 pairs,
 //   a masked target as NaN: fminf(x, NaN) = x, so the inner loop has no
 //   mask test and costs one broadcast LDS.128 per 2 targets per K rows,
 //   5 FP32 instructions and 1 FMNMX per pair; the next float4 is loaded a

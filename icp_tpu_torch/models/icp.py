@@ -1,5 +1,5 @@
 """Iterative Closest Point on masked clouds (counterpart of
-icp_tpu.models.icp: ``ICPResult``, ``icp_core``, ``icp``).
+icp_tpu.models.icp: ``ICPResult``, ``icp_core``, ``icp``, ``icp_large``).
 
 Each iteration is {NN query, correspondence gate, closed-form solve,
 accumulate, convergence check} on device tensors. icp_tpu runs the loop as
@@ -38,6 +38,10 @@ class ICPResult(NamedTuple):
     error: torch.Tensor      # scalar mean squared NN residual
     iters: torch.Tensor      # iterations executed (int32)
     n_inliers: torch.Tensor  # inlier count at the last executed iteration
+    # points outside static capacities (icp_large: targets over `cap` or
+    # the grid extent, plus the last binning's queries over qcells/qcap);
+    # 0 for the brute-force ICPs
+    dropped: torch.Tensor | int = 0
 
 
 def icp_core(
@@ -152,3 +156,169 @@ def icp(
         use_gate=use_gate, nn_impl=nn_impl,
     )
 
+
+def _row_bound(occupied: int, qcells: int) -> int:
+    """compact_nn's row bound for one icp_large call: the occupied compact
+    rows of the first binning with headroom for re-binning, in steps of 64
+    so the buffers' shapes repeat across calls."""
+    want = occupied + max(64, occupied // 4)
+    return min(qcells, -(-want // 64) * 64)
+
+
+def icp_large(
+    source, src_mask, target, tgt_mask, R_init, t_init,
+    *,
+    max_corr_dist,
+    max_iterations: int = 50,
+    error_threshold=1e-7,
+    grid_shape: tuple = (256, 256),
+    cap: int = 16,
+    qcap: int = 16,
+    qcells: int = 4096,
+    cell_size=None,
+    method: str = "point_to_point",
+):
+    """Gated ICP for large clouds (10^5+ points) on a dense cell grid.
+
+    Correspondences come from ``ops.densegrid``: the target is binned once
+    with cell size >= max_corr_dist (1.5x by default), which is exact for
+    every pair the gate keeps. The source lives in compact cell-binned
+    planes that each iteration transforms in place; it is re-binned when
+    the accumulated movement exceeds the margin cell_size - max_corr_dist.
+    ``method="point_to_line"`` takes per-cell target normals
+    (``cell_normals``), looked up at each binning, with the residual
+    direction where a cell's neighbourhood is degenerate, and centres the
+    solve on the weighted source centroid (f32 at 100 m coordinates).
+
+    icp_tpu runs the loop as one ``lax.while_loop`` with a ``lax.cond``
+    re-bin. Here, as in ``icp_core``, it runs in chunks of ``_CHUNK``
+    iterations with one host read each, and every iteration after ``stop``
+    leaves the state untouched. The re-binned planes are computed every
+    iteration and selected where the drift exceeds the margin, so the
+    host never reads the drift. ``compact_nn`` compares only the first
+    ``rows`` compact rows, a bound set from the first binning; the read at
+    the end of a chunk also says whether a re-bin in it occupied more rows,
+    and then the chunk runs again over all ``qcells`` rows. The result is
+    the while-loop's.
+    """
+    from icp_tpu_torch.ops.densegrid import (
+        CompactQueries, bin_queries, build_dense_grid, cell_normals,
+        compact_nn, grid_origin)
+
+    dev = source.device
+    f32 = torch.float32
+    use_p2l = method == "point_to_line"
+    max_corr = torch.as_tensor(max_corr_dist, dtype=f32, device=dev)
+    cell = (1.5 * max_corr if cell_size is None
+            else torch.as_tensor(cell_size, dtype=f32, device=dev))
+    margin = cell - max_corr
+    origin = grid_origin(target, tgt_mask, cell)
+    grid = build_dense_grid(target, tgt_mask, cell, origin,
+                            grid_shape=grid_shape, cap=cap)
+    if use_p2l:
+        nrm = cell_normals(grid)
+    n_valid = src_mask.to(f32).sum()
+    min_inliers = torch.clamp(torch.floor(n_valid / 10.0), min=3.0)
+    err_thresh = torch.as_tensor(error_threshold, dtype=f32, device=dev)
+    max_corr_sq = max_corr * max_corr
+    Cx = grid_shape[1]
+
+    def rebin(r_total, t_total):
+        pts = source @ r_total.T + t_total
+        cq = bin_queries(pts, src_mask, origin, cell, grid_shape=grid_shape,
+                         qcells=qcells, qcap=qcap)
+        if not use_p2l:
+            return cq, ()
+        rows_ = cq.cell_yx[:, 0].to(torch.int64) * Cx + cq.cell_yx[:, 1]
+        return cq, tuple(p[rows_] for p in nrm)
+
+    def step(s, rows):
+        it, cq, nq, r_total, t_total, error, stop, n_in, drift, need = s
+        live = ~stop
+        d2, _, bx, by = compact_nn(cq, grid, rows)
+        inlier = (d2 < max_corr_sq) & cq.mask
+        w = inlier.to(f32)
+        n_in_new = w.sum()
+        abort = n_in_new < min_inliers
+
+        a = torch.stack([cq.x.reshape(-1), cq.y.reshape(-1)], dim=1)
+        b = torch.stack([bx.reshape(-1), by.reshape(-1)], dim=1)
+        wf = w.reshape(-1)
+        if use_p2l:
+            nqx, nqy, nok = nq
+            # residual-direction fallback for degenerate cells
+            d_s = torch.sqrt(torch.clamp(d2, min=1e-12))
+            fbx = (bx - cq.x) / d_s
+            fby = (by - cq.y) / d_s
+            nrm_ = torch.stack(
+                [torch.where(nok[:, None], nqx[:, None], fbx).reshape(-1),
+                 torch.where(nok[:, None], nqy[:, None], fby).reshape(-1)],
+                dim=1)
+            cw = (a * wf[:, None]).sum(0) / torch.clamp(n_in_new, min=1.0)
+            r, t1 = p2l_solve_2d(a - cw, b - cw, nrm_, wf)
+            t = t1 + cw - r @ cw
+        else:
+            r, t = p2p_solve_2d(a, b, wf)
+
+        # transform the compact planes in place (rigid, elementwise)
+        mx = r[0, 0] * cq.x + r[0, 1] * cq.y + t[0]
+        my = r[1, 0] * cq.x + r[1, 1] * cq.y + t[1]
+        sq = (bx - mx) ** 2 + (by - my) ** 2
+        new_error = masked_mean(sq, inlier)
+        delta = torch.abs(error - new_error)
+        eff = torch.maximum(err_thresh, 32.0 * _F32_EPS * new_error)
+        converged = delta < eff
+
+        keep = ~abort
+        kf = keep.to(f32)
+        mx = kf * mx + (1.0 - kf) * cq.x
+        my = kf * my + (1.0 - kf) * cq.y
+        apply = live & keep
+        r_total = torch.where(apply, r @ r_total, r_total)
+        t_total = torch.where(apply, t_total @ r.T + t, t_total)
+
+        # conservative drift bound: the largest per-point displacement
+        move_sq = torch.where(cq.mask, (mx - cq.x) ** 2 + (my - cq.y) ** 2,
+                              0.0).amax()
+        drift_new = drift + torch.sqrt(move_sq)
+        rb = live & (drift_new > margin)
+        cq_rb, nq_rb = rebin(r_total, t_total)
+        moved = cq._replace(x=torch.where(live, mx, cq.x),
+                            y=torch.where(live, my, cq.y))
+        cq = CompactQueries(*(torch.where(rb, u, v)
+                              for u, v in zip(cq_rb, moved)))
+        nq = tuple(torch.where(rb, u, v) for u, v in zip(nq_rb, nq))
+        need = torch.maximum(need, cq.cell_mask.sum())
+        return (it + live.to(torch.int32), cq, nq, r_total, t_total,
+                torch.where(apply, new_error, error), stop | abort | converged,
+                torch.where(live, n_in_new, n_in),
+                torch.where(live, torch.where(rb, 0.0, drift_new), drift),
+                need)
+
+    cq, nq = rebin(R_init, t_init)
+    occupied = cq.cell_mask.sum()
+    rows = _row_bound(int(occupied), qcells)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    s = (torch.zeros((), dtype=torch.int32, device=dev), cq, nq, R_init,
+         t_init, torch.full((), float("inf"), dtype=f32, device=dev),
+         torch.zeros((), dtype=torch.bool, device=dev), zero, zero, occupied)
+    done = 0
+    while done < max_iterations:
+        k = min(_CHUNK, max_iterations - done)
+        out = s
+        for _ in range(k):
+            out = step(out, rows)
+        stop, need = torch.stack([out[6].to(torch.int64), out[9]]).tolist()
+        if need > rows:         # a re-bin outgrew the bound: redo on all rows
+            rows = qcells
+            out = s
+            for _ in range(k):
+                out = step(out, rows)
+            stop = bool(out[6])
+        s = out
+        done += k
+        if stop:
+            break
+    it, cq, _, r_total, t_total, error, _, n_in, _, _ = s
+    return ICPResult(r_total, t_total, error, it, n_in.to(torch.int32),
+                     grid.overflow + cq.overflow)

@@ -1,5 +1,6 @@
 """Brute-force nearest neighbours on masked clouds (counterpart of
-icp_tpu.ops.nn: ``pairwise_sqdist``, ``nn_query`` and ``knn_query``).
+icp_tpu.ops.nn: ``pairwise_sqdist``, ``nn_query``, ``nn_query_chunked``
+and ``knn_query``).
 
 All entry points are masked: invalid target slots never win an argmin and
 invalid source slots report +BIG distance. Ties go to the lowest target
@@ -52,6 +53,28 @@ def nn_query(source, target, tgt_mask, src_mask=None):
     if src_mask is not None:
         dist = torch.where(src_mask, dist, BIG)
     return dist, idx
+
+
+def nn_query_chunked(source, target, tgt_mask, src_mask=None, *,
+                     chunk: int = 2048):
+    """nn_query for large N: source rows in chunks of ``chunk``, so the
+    distance matrix never exceeds (chunk, M). The centroid shift is the
+    whole target's, as in one nn_query call."""
+    n = source.shape[0]
+    if n <= chunk:
+        return nn_query(source, target, tgt_mask, src_mask)
+    center = masked_centroid(target, tgt_mask)
+    dists, idxs = [], []
+    for c0 in range(0, n, chunk):
+        d = pairwise_sqdist(source[c0:c0 + chunk], target, tgt_mask,
+                            center=center)
+        idx = torch.argmin(d, dim=-1)
+        dists.append(torch.sqrt(torch.gather(d, 1, idx[:, None])[:, 0]))
+        idxs.append(idx)
+    dist = torch.cat(dists)
+    if src_mask is not None:
+        dist = torch.where(src_mask, dist, BIG)
+    return dist, torch.cat(idxs)
 
 
 def knn_query(query, query_mask, points, points_mask, k: int):

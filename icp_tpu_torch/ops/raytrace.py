@@ -1,6 +1,8 @@
 """Closed-form Bresenham ray tracing + scatter-add occupancy update
 (counterpart of icp_tpu.ops.raytrace: ``bresenham_cells_xy``,
-``bresenham_cells``, ``raytrace_update``, ``raytrace_update_batched``).
+``bresenham_cells``, ``raytrace_update``, ``raytrace_update_batched``, and
+the one-block case of icp_tpu.parallel.sharded_grid's block-sharded paint
+and replay: free space traced from a strided ray set beside all hits).
 
 Semantics as in icp_tpu and the reference (utilities/mapping.py:68-141):
 cells are emitted before stepping with the endpoint excluded; out-of-grid
@@ -8,8 +10,9 @@ cells are dropped; hit cells add l_hit, every emitted free cell adds
 l_miss (overlapping rays count twice); then the grid is clamped once. The
 update is a plain accumulate-scatter: hits first, then free cells, then
 one clamp — per scan, or per batch for the batched form. icp_tpu's sort
-compaction, run-length dedup and windowed scatter answer TPU scatter costs
-and are not ported.
+compaction, run-length dedup (``dedup_scatter_add``) and windowed scatter
+answer TPU scatter costs and are not ported: ``index_add_`` adds directly.
+With lo_min = -inf and lo_max = +inf the grid keeps the unclamped sum.
 
 The update functions write into ``log_odds`` in place (the counterpart of
 icp_tpu donating the grid to the fused step) and return it. Scatter-add
@@ -82,33 +85,48 @@ def _paint(log_odds, hx, hy, hit_valid, fx, fy, free_active,
     return log_odds.clamp_(lo_min, lo_max)
 
 
+def _rays(hit_cells, valid, ray_cells, ray_valid):
+    """The rays to trace: every hit by default, else ``ray_cells``."""
+    if ray_cells is None:
+        return hit_cells, valid
+    if ray_valid is None:
+        raise ValueError("ray_cells requires ray_valid")
+    return ray_cells.to(torch.int64), ray_valid
+
+
 def raytrace_update(log_odds, origin_cell, hit_cells, valid,
-                    l_hit, l_miss, lo_min, lo_max, *, max_steps: int):
+                    l_hit, l_miss, lo_min, lo_max, *, max_steps: int,
+                    ray_cells=None, ray_valid=None):
     """One scan's occupancy update, in place on ``log_odds`` (ny, nx).
 
     origin_cell (2,) int; hit_cells (N, 2) as (ix, iy); valid (N,).
+    ``ray_cells`` (R, 2) / ``ray_valid`` (R,): optionally trace free space
+    along these rays only (a strided subset of the hits, say), while every
+    valid hit still adds l_hit.
     """
     hit_cells = hit_cells.to(torch.int64)
-    x, y, active = bresenham_cells_xy(origin_cell, hit_cells, valid,
-                                      max_steps=max_steps)
+    rc, rv = _rays(hit_cells, valid, ray_cells, ray_valid)
+    x, y, active = bresenham_cells_xy(origin_cell, rc, rv, max_steps=max_steps)
     return _paint(log_odds, hit_cells[..., 0], hit_cells[..., 1], valid,
                   x, y, active, float(l_hit), float(l_miss),
                   float(lo_min), float(lo_max))
 
 
 def raytrace_update_batched(log_odds, origin_cells, hit_cells, valid,
-                            l_hit, l_miss, lo_min, lo_max, *, max_steps: int):
+                            l_hit, l_miss, lo_min, lo_max, *, max_steps: int,
+                            ray_cells=None, ray_valid=None):
     """A batch of scans' occupancy updates in one pass, in place.
 
-    origin_cells (B, 2); hit_cells (B, N, 2); valid (B, N). All hits and
-    free cells of the batch are added, then the grid is clamped once per
-    batch (as icp_tpu's batched form; this differs from B per-scan updates
-    only for a cell that both saturates a bound and gets opposite-sign
-    updates within the batch).
+    origin_cells (B, 2); hit_cells (B, N, 2); valid (B, N); optional
+    ``ray_cells`` (B, R, 2) / ``ray_valid`` (B, R) as in raytrace_update.
+    All hits and free cells of the batch are added, then the grid is
+    clamped once per batch (as icp_tpu's batched form; this differs from B
+    per-scan updates only for a cell that both saturates a bound and gets
+    opposite-sign updates within the batch).
     """
     hit_cells = hit_cells.to(torch.int64)
-    x, y, active = bresenham_cells_xy(origin_cells, hit_cells, valid,
-                                      max_steps=max_steps)
+    rc, rv = _rays(hit_cells, valid, ray_cells, ray_valid)
+    x, y, active = bresenham_cells_xy(origin_cells, rc, rv, max_steps=max_steps)
     return _paint(log_odds, hit_cells[..., 0], hit_cells[..., 1], valid,
                   x, y, active, float(l_hit), float(l_miss),
                   float(lo_min), float(lo_max))

@@ -6,6 +6,7 @@ ops never branch on the host on how many points are valid.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # sentinel "infinite" distance for masked slots
@@ -16,6 +17,33 @@ def next_pow2(n: int) -> int:
     """Smallest power of two >= n (minimum 8)."""
     n = max(int(n), 8)
     return 1 << (n - 1).bit_length()
+
+
+def bucket_capacity(n: int, minimum: int = 256) -> int:
+    """Pad-target capacity for n points: pow2 bucketing with a floor."""
+    return max(next_pow2(n), minimum)
+
+
+def pad_points(points: np.ndarray, capacity: int | None = None):
+    """Pad an (n, D) host array to (capacity, D) + bool mask (numpy).
+
+    Padding rows repeat the first valid point, so reductions that forget
+    the mask still see in-range coordinates.
+    """
+    points = np.asarray(points, dtype=np.float32)
+    n = points.shape[0]
+    if capacity is None:
+        capacity = bucket_capacity(n)
+    if n > capacity:
+        raise ValueError(f"point count {n} exceeds capacity {capacity}")
+    d = points.shape[1] if points.ndim == 2 else 2
+    out = np.zeros((capacity, d), dtype=np.float32)
+    if n > 0:
+        out[:n] = points
+        out[n:] = points[0]
+    mask = np.zeros((capacity,), dtype=bool)
+    mask[:n] = True
+    return out, mask
 
 
 def _sum(x: torch.Tensor, dim):

@@ -82,6 +82,68 @@ def make_trajectory(n_scans, kind="loop"):
     return np.stack([x, y, yaw], axis=1)
 
 
+def make_dense_world(rng, n_points=1_000_000, extent=100.0, n_walls=220):
+    """Dense structured point world: wall segments sampled at high density
+    inside a [-extent, extent] arena. Returns an (n_points, 2) f32 cloud.
+
+    The point-scale world of the scaled pipeline (100k-point scans): scans
+    are range-limited views of this cloud, so inter-scan correspondences
+    are real.
+    """
+    starts = rng.uniform(-extent, extent, (n_walls, 2))
+    horiz = rng.integers(0, 2, n_walls).astype(bool)
+    lengths = rng.uniform(extent * 0.1, extent * 0.35, n_walls)
+    per = n_points // n_walls
+    pts = []
+    for s, h, L in zip(starts, horiz, lengths):
+        t = rng.uniform(0, L, per)
+        seg = np.stack([s[0] + np.where(h, t, 0.0),
+                        s[1] + np.where(h, 0.0, t)], axis=1)
+        pts.append(seg)
+    cloud = np.concatenate(pts).astype(np.float32)
+    return np.clip(cloud, -extent, extent)
+
+
+def large_scan_stream(n_scans, n_points=100_000, extent=100.0,
+                      max_range=35.0, noise=0.02, seed=0,
+                      world_points=None, trajectory="loop"):
+    """Generator of (scan, gt_pose) for the scaled pipeline: each scan is
+    ``n_points`` sensor-frame points sampled (with replacement) from the
+    dense world within ``max_range`` of the pose. Ground truth is a loop
+    (an ellipse, or with ``trajectory="eight"`` a self-intersecting
+    lemniscate) sized to the arena, so loop closures are real. Scans are
+    made lazily, one at a time.
+    """
+    rng = np.random.default_rng(seed)
+    world = (make_dense_world(rng, extent=extent)
+             if world_points is None else world_points)
+    s = np.linspace(0, 2 * np.pi, n_scans)
+    rad = extent * 0.55
+    if trajectory == "eight":
+        den = 1.0 + np.sin(s) ** 2
+        x = rad * np.cos(s) / den
+        y = rad * 0.9 * np.sin(s) * np.cos(s) / den
+    else:
+        x = rad * np.cos(s - np.pi / 2)
+        y = rad * 0.8 * np.sin(s - np.pi / 2)
+    yaw = np.arctan2(np.gradient(y), np.gradient(x))
+    gt = np.stack([x, y, yaw], axis=1)
+
+    for k in range(n_scans):
+        pos = gt[k, :2]
+        d2 = np.sum((world - pos) ** 2, axis=1)
+        near = np.flatnonzero(d2 < max_range * max_range)
+        if near.size == 0:
+            near = np.array([int(np.argmin(d2))])
+        pick = near[rng.integers(0, near.size, n_points)]
+        pts_w = world[pick]
+        c, si = np.cos(gt[k, 2]), np.sin(gt[k, 2])
+        Rwt = np.array([[c, si], [-si, c]], np.float32)   # world->sensor
+        pts_s = (pts_w - pos.astype(np.float32)) @ Rwt.T
+        pts_s = pts_s + rng.normal(scale=noise, size=pts_s.shape)
+        yield pts_s.astype(np.float32), gt[k]
+
+
 def generate_sequence(
     out_lidar,
     out_imu,
