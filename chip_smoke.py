@@ -59,8 +59,26 @@ Phases (any failed check ends the run with a non-zero exit code):
      ATE while streaming, the stats, the wall split, kernel launches per
      loop-closure check and peak device memory; then time the parts of
      12 scaled scans (each step, icp_large and compact_nn synchronized).
-Phases 11-12 run after phase 7 and before phases 8-10, whose torch.profiler
-window slows what comes after it; a profile of 12 scaled scans comes last.
+ 13. the file-driven path: the bench sequence's CSVs and a YAML of bench.py's
+     configuration with display.live_map on (snapshot_every 50) through
+     icp_tpu_torch.cli.main with --map-png, --profile, --save-traj, all
+     200 scans at full width, counters reset just before: check both
+     counters > 0, the saved trajectory's ATE <= 0.050 m, a map PNG of the
+     grid's size, >= 3 snapshots map_NNNNN.png, a Chrome trace, and that
+     the CSV went through the native parser; print scans/s (the profiler is
+     on: judged by nothing). Needs no matplotlib;
+ 14. the native CSV parser against the numpy line parser on the whole
+     bench file: timestamps and points equal; print both parse times (host
+     times) with the host's CPU count;
+ 15. 3-D ICP: the teapot demo on the card (exit 0, PASS) and
+     tests/test_icp.py's 3-D case (418 points in 512 slots, 25 degrees
+     about Y): error < 1e-4, R within 2e-2; print iterations, ms an
+     alignment and ms a 3 x 3 SVD by CUDA events, and kernel launches an
+     iteration; then entry()'s registration step once: finite R, t, error.
+Phases 11-12, 14 and 15 run after phase 7 and before phases 8-10, whose
+torch.profiler window slows what comes after it; phase 13 (profiled
+itself), a profile of 12 scaled scans and the 3-D ICP's launch count come
+last.
 Phases 3 and 5 also hold the kernels at that run's loop-closure shapes:
 nn_cuda at 8192 x 8192 and nn_min_cuda at 983,040 and 98,304 x 8192, each
 compared with its plain version in row chunks (the plain version at once
@@ -70,6 +88,8 @@ The last two lines are a JSON summary of the kernels and
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -1051,11 +1071,181 @@ def scaled_phase(dev, card) -> dict:
             "stats": {k: v for k, v in st.__dict__.items()}}
 
 
+def file_driven_phase(dev, card, td, gt, n_steps) -> dict:
+    """Phase 13: the CLI over the bench CSVs in ``td``, live map, map PNG
+    and profiler on. Returns the kernels' launch counts."""
+    import yaml                # the CLI reads its config with it
+
+    import icp_tpu_torch.engine as E
+    from icp_tpu_torch import cli
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+    from icp_tpu_torch.utils.metrics import ate
+
+    out = os.path.join(td, "file_driven")
+    live, prof_dir = os.path.join(out, "live"), os.path.join(out, "profile")
+    os.makedirs(out)
+    cfg = dict(
+        BENCH_CFG, data_file=os.path.join(td, "bench_lidar.csv"),
+        imu=dict(BENCH_CFG["imu"], file=os.path.join(td, "bench_imu.csv")),
+        display={"live_map": True, "snapshot_every": 50, "snapshot_dir": live},
+        output={"csv": os.path.join(out, "map.csv"),
+                "npy": os.path.join(out, "map.npy")})
+    yaml_path = os.path.join(out, "bench.yaml")
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    png, npy = os.path.join(out, "map.png"), os.path.join(out, "traj.npy")
+
+    # the CLI returns nothing: keep the engine its run_slam call returns
+    seen = {}
+    real_run = E.run_slam
+
+    def recording_run(*a, **k):
+        res = real_run(*a, **k)
+        seen["engine"] = res[3]
+        return res
+
+    E.run_slam = recording_run
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["--config", yaml_path, "--device", str(dev), "--quiet",
+                  "--map-png", png, "--profile", prof_dir, "--save-traj", npy])
+    finally:
+        E.run_slam = real_run
+    wall = time.perf_counter() - t0
+    launches = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    eng = seen["engine"]
+    traj = np.load(npy)
+    ate_f = ate(traj[:, :2, 2], gt, indices=eng.pose_scan_indices)
+    data = open(png, "rb").read()
+    size = (int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big"))
+    snaps = sorted(x for x in (os.listdir(live) if os.path.isdir(live) else [])
+                   if x.startswith("map_") and x.endswith(".png"))
+    traces = [os.path.join(prof_dir, x) for x in os.listdir(prof_dir)]
+    log(f"file-driven path (cli, live map, --map-png, --profile): "
+        f"{len(traj)} poses, {eng.stats.rejected} rejected, ATE {ate_f:.4f} m "
+        f"(bound {ATE_BOUND_M} m); {n_steps / wall:.2f} scans/s with the "
+        f"profiler on and the trace's export inside ({wall:.2f} s) on {card}; "
+        f"launches {launches}; map PNG {size[0]}x{size[1]}, snapshots {snaps}, "
+        f"trace {sum(os.path.getsize(t) for t in traces) / 2**20:.1f} MiB; "
+        f"lidar parser {eng.lidar_parser}; matplotlib imported: "
+        f"{'matplotlib' in sys.modules}")
+    assert launches["nn"] > 0 and launches["nn_min"] > 0, launches
+    assert np.isfinite(traj).all() and len(traj) >= MIN_POSES, len(traj)
+    assert ate_f <= ATE_BOUND_M, f"file-driven ATE {ate_f:.4f} m > {ATE_BOUND_M} m"
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", "map PNG signature"
+    assert size == (eng.mapper.nx, eng.mapper.ny), (size, eng.mapper.nx, eng.mapper.ny)
+    assert len(snaps) >= 3, snaps
+    assert traces and all(os.path.getsize(t) > 0 for t in traces), traces
+    assert eng.lidar_parser == "native", eng.lidar_parser
+    assert eng._live_view is None, "phase 13 opened a window"
+    return launches
+
+
+def parser_phase(lidar_csv) -> dict:
+    """Phase 14: the native parser against the numpy line parser on the
+    whole bench file. The times are the host's, not the card's."""
+    from icp_tpu_torch.runtime.loader import load_lidar_csv
+    from icp_tpu_torch.services.lidar import parse_lidar_line
+
+    def numpy_parse():
+        with open(lidar_csv) as f:
+            return [parse_lidar_line(line) for line in f if line.strip()]
+
+    times = {"native": [], "numpy": []}
+    for _ in range(3):
+        for name, fn in (("native", lambda: load_lidar_csv(lidar_csv)),
+                         ("numpy", numpy_parse)):
+            t0 = time.perf_counter()
+            scans = fn()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            times[name + "_scans"] = scans
+    a, b = times.pop("native_scans"), times.pop("numpy_scans")
+    assert len(a) == len(b) == N_SCANS, (len(a), len(b))
+    for (ts_a, pts_a), (ts_b, pts_b) in zip(a, b):
+        assert ts_a == ts_b, (ts_a, ts_b)
+        assert pts_a.dtype == pts_b.dtype and np.array_equal(pts_a, pts_b), \
+            "native parser != numpy parser"
+    mib = os.path.getsize(lidar_csv) / 2**20
+    log(f"lidar CSV parse ({len(a)} scans, {sum(len(p) for _, p in a)} points, "
+        f"{mib:.1f} MiB), scans, timestamps and points equal; HOST times, 3 "
+        f"runs each on a host of {os.cpu_count()} CPUs: native "
+        f"{'/'.join(f'{t:.1f}' for t in times['native'])} ms, numpy "
+        f"{'/'.join(f'{t:.1f}' for t in times['numpy'])} ms")
+    return times
+
+
+def icp3d_phase(dev, card, td):
+    """Phase 15: the teapot demo and tests/test_icp.py's 3-D case on the
+    card, then entry()'s step. Returns (alignment, iterations icp_core
+    computed: whole chunks) for the launch count taken at the end."""
+    from icp_tpu_torch.demos import teapot_icp_demo
+    from icp_tpu_torch.models.icp import _CHUNK, icp, identity_init
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+    from icp_tpu_torch.tools.entry import entry
+    from icp_tpu_torch.utils.masking import pad_points
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = teapot_icp_demo.main(["--device", str(dev), "-o",
+                                   os.path.join(td, "teapot_alignment.png")])
+    for line in buf.getvalue().splitlines():
+        log(f"  teapot demo: {line}")
+    assert rc == 0 and "PASS" in buf.getvalue(), "teapot demo failed"
+
+    rng = np.random.default_rng(4)
+    target = rng.uniform(-1.5, 1.5, size=(418, 3)).astype(np.float32)
+    target[:, 2] *= 0.5
+    th = np.deg2rad(25.0)
+    R_true = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                       [-np.sin(th), 0, np.cos(th)]], np.float32)
+    source = (target - np.float32([0.3, -0.2, 0.25])) @ R_true
+    sp, sm, tp, tm = (torch.as_tensor(a, device=dev) for a in (
+        *pad_points(source, 512), *pad_points(target, 512)))
+    eye, zero = identity_init(3, dev)
+
+    def align():
+        return icp(sp, sm, tp, tm, eye, zero, voxel_size=0.005,
+                   method="point_to_point", max_iterations=300,
+                   error_threshold=1e-12)
+
+    K.reset_launch_counts()
+    res = align()
+    err, iters = float(res.error), int(res.iters)
+    gap = float((res.R.cpu() - torch.as_tensor(R_true)).abs().max())
+    assert K.nn_launches == 0 and K.nn_min_launches == 0, "a 2-D kernel ran at D = 3"
+    assert np.isfinite(err) and err < 1e-4, f"3-D ICP error {err}"
+    assert gap < 2e-2, f"3-D ICP |R - R_true| {gap}"
+    ms = time_ms(align, iters=5, warmup=1)
+    W = torch.as_tensor(rng.normal(size=(3, 3)).astype(np.float32), device=dev)
+    svd_ms = time_ms(lambda: torch.linalg.svd(W), iters=50)
+    log(f"3-D ICP (418 points in 512 slots, 25 degrees about Y): {iters} "
+        f"iterations, error {err:.3e}, |R - R_true| {gap:.3g}; {ms:.2f} ms an "
+        f"alignment and {svd_ms:.3f} ms a 3 x 3 torch.linalg.svd by CUDA "
+        f"events (host launch gaps inside) on {card}")
+
+    fn, args = entry(dev)
+    R, t, e = fn(*args)
+    assert bool(torch.isfinite(R).all() and torch.isfinite(t).all()
+                and torch.isfinite(e)), "entry(): non-finite R, t or error"
+    yaw = float(torch.atan2(R[1, 0], R[0, 0]))
+    log(f"entry() registration step on the card: yaw {yaw:.4f} (true 0.3), "
+        f"|t| {float(t.norm()):.3g}, error {float(e):.3g}")
+    assert abs(yaw - 0.3) < 1e-2, yaw
+    return align, -(-iters // _CHUNK) * _CHUNK
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke test needs a CUDA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as td:
+        run(td)
+
+
+def run(td):
+    """Every phase; ``td`` holds the bench CSVs and what phase 13 writes."""
     from icp_tpu_torch.engine import SlamEngine
     from icp_tpu_torch.ops.hopper import build
     from icp_tpu_torch.ops.hopper import nn_kernel as K
@@ -1078,8 +1268,7 @@ def main():
             log(f"  ptxas: {line.strip()}")
 
     # ── 3. kernels against their plain versions ──────────────────────────
-    with tempfile.TemporaryDirectory() as td:
-        gt, scans, rels, imu = load_sequence(td)
+    gt, scans, rels, imu = load_sequence(td)
     log(f"sequence: {len(scans)} scans, mean "
         f"{np.mean([len(s) for s in scans]):.0f} points")
     cfg = SlamConfig.from_dict(BENCH_CFG)
@@ -1175,11 +1364,25 @@ def main():
     scaled = scaled_phase(dev, card)
     scaled_breakdown(dev, card)
 
+    # ── 14. the native CSV parser; 15. 3-D ICP and entry() ───────────────
+    parser_phase(os.path.join(td, "bench_lidar.csv"))
+    align3d, computed3d = icp3d_phase(dev, card, td)
+
     # ── 8-10. the features path, "both" with loop closure, modular ───────
     launches_feat = features_phases(SlamConfig, ate, dev, card, gt, scans,
                                     rels, imu, ate_m)
     launches_feat["scaled"] = scaled["launches"]
+
+    # ── 13. the file-driven path (profiled itself) ───────────────────────
+    launches_feat["file_driven"] = file_driven_phase(dev, card, td, gt, n_steps)
+
     scaled_profile(dev, card)
+    counts = profile_counts(align3d, 1)
+    log(f"3-D ICP, one alignment ({computed3d} iterations computed, in whole "
+        f"chunks): {counts['launches']} kernel launches, "
+        f"{counts['launches'] / computed3d if counts['launches'] else None} "
+        f"an iteration, {counts['d2h']} device-to-host copies "
+        f"(torch.profiler) on {card}")
     kernels = []
     # the top-level figures are those of the main path's heaviest call: the
     # submap ICP's query and the submap sweep's fine pass

@@ -11,15 +11,19 @@ Layout:
   ops/       masked tensor ops (NN, dense-grid NN, voxel, eig2x2, rigid
              solves, RANSAC, sweeps, raytrace) + ops/hopper (CUDA
              kernels, their build and bindings)
-  models/    ICP (brute force and dense-grid icp_large), pre-alignment (rotation search, features/RANSAC),
+  models/    ICP (2-D and 3-D brute force, dense-grid icp_large), pre-alignment (rotation search, features/RANSAC),
              occupancy grid (with replay), SE(2) pose graph, fused SLAM step
   parallel/  the single-device matrix-free PCG pose-graph solve and the
              scaled pipeline (BASELINE config #5) on one device
-  services/  lidar/IMU CSV ingestion (numpy)
-  utils/     SE(2) transforms, masking, config, synthetic data, metrics
+  services/  lidar/IMU CSV ingestion (native parser, numpy without a compiler)
+  runtime/   ctypes loader of the native CSV parser (csrc/fastcsv.cpp)
+  utils/     SE(2) transforms, masking, config, synthetic data, metrics,
+             PNG rasteriser, live map window
   engine.py  streaming SLAM engine (fused batched path, modular path, loop
-             closure, checkpoints)
+             closure, checkpoints, live-map snapshots)
   cli.py     command-line entry
+  demos/     3-D ICP correctness demo (teapot)
+  tools/     cloud viewers and players, ATE A/B, profiling, entry()
 
 This package never imports jax.
 """

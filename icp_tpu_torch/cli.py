@@ -5,7 +5,9 @@ schema), optionally write a synthetic sequence first (``--synth``), run
 SLAM on ``--device`` (default cuda), loop closure included where the
 config enables it, and save the occupancy grid; ``--checkpoint`` saves the
 whole SLAM state at the end and ``--resume`` restores one first (the npz
-of either package). ``--scaled`` runs the scaled pipeline
+of either package); ``--map-png`` also renders the final map with the
+trajectory, and ``--profile DIR`` runs the engine under ``torch.profiler``
+and writes a Chrome trace into DIR. ``--scaled`` runs the scaled pipeline
 (parallel/scaled.py, BASELINE config #5) on one device instead of the
 engine, with its knobs under the config's ``scaled:`` section.
 """
@@ -26,6 +28,10 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default: cuda)")
     parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="capture a torch.profiler trace into DIR")
+    parser.add_argument("--map-png", type=str, default=None,
+                        help="also render the final map (+trajectory) to PNG")
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="save full SLAM state to this .npz at the end")
     parser.add_argument("--save-traj", type=str, default=None,
@@ -68,8 +74,14 @@ def main(argv=None):
 
     from icp_tpu_torch.engine import run_slam
 
-    global_pose, trajectory, mapper, engine = run_slam(
-        cfg, verbose=not args.quiet, device=args.device, resume=args.resume)
+    def run():
+        return run_slam(cfg, verbose=not args.quiet, device=args.device,
+                        resume=args.resume)
+
+    if args.profile:
+        global_pose, trajectory, mapper, engine = _profiled(run, args.profile)
+    else:
+        global_pose, trajectory, mapper, engine = run()
 
     print("global_pose:\n", global_pose)
     s = engine.stats
@@ -78,6 +90,7 @@ def main(argv=None):
           f"icp_iters={s.icp_iters}")
     print(f"wall: registration={s.wall_registration:.2f}s "
           f"mapping={s.wall_mapping:.2f}s lc={s.wall_loop_closure:.2f}s")
+    print(f"lidar parser: {engine.lidar_parser}")
 
     if mapper is not None:
         for path in (cfg.out_csv, cfg.out_npy):
@@ -87,6 +100,10 @@ def main(argv=None):
         mapper.save_csv(cfg.out_csv)
         mapper.save_npy(cfg.out_npy)
         print(f"map saved: {cfg.out_csv}, {cfg.out_npy}")
+        if args.map_png:
+            traj_xy = np.array([[p[0, 2], p[1, 2]] for p in trajectory])
+            mapper.save_png(args.map_png, trajectory=traj_xy)
+            print(f"map render: {args.map_png}")
 
     if args.save_traj and trajectory:
         np.save(args.save_traj, np.stack(trajectory))
@@ -95,6 +112,27 @@ def main(argv=None):
     if args.checkpoint:
         engine.save_checkpoint(args.checkpoint)
         print(f"checkpoint saved: {args.checkpoint}")
+
+
+def _profiled(run, trace_dir):
+    """``run()`` under torch.profiler (CPU activity and, where the run
+    reaches a card, CUDA activity); the Chrome trace goes into
+    ``trace_dir`` (open it in chrome://tracing or Perfetto)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        out = run()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = os.path.join(trace_dir, "icp_tpu_torch.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
+    return out
 
 
 def _run_scaled(cfg, args):

@@ -28,11 +28,14 @@ in loop-closure verification. RANSAC draws from ``torch.Generator``
 streams seeded as icp_tpu seeds its PRNG keys: the fused state's, and the
 engine's own (``_gen``) for the modular path and verification.
 
-Not ported yet (ROADMAP Queue 1): the device mesh (``distributed: true``)
-and the live map view.
+``display.live_map`` refreshes a matplotlib window, or PNG snapshots where
+there is no display, every ``snapshot_every`` scans (``maybe_snapshot``).
+
+Not ported yet (ROADMAP Queue 1): the device mesh (``distributed: true``).
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -180,6 +183,10 @@ class SlamEngine:
         self._warned_truncate = False
         self._sub_sat_warned = False
         self._sweep_drop_warned = False
+        self.lidar_parser = None          # run_slam: "native" | "numpy"
+        self._live_view = None            # interactive window (if display)
+        self._snapshot_scans = 0          # stats.scans at the last refresh
+        self._live_view_failed = False
 
     # ── static bounds resolved from the first scan ───────────────────────
     def _resolve_ray_bound(self, first_points: np.ndarray) -> int:
@@ -643,6 +650,58 @@ class SlamEngine:
                     log_odds=self.mapper.log_odds)
         elif self._state is not None:
             self.mapper.log_odds = self._state.log_odds
+
+    def maybe_snapshot(self):
+        """Live map (reference slam.py:416-452,622-639): an interactive
+        matplotlib window when a display is available, otherwise periodic
+        PNG snapshots ``map_NNNNN.png`` in ``cfg.snapshot_dir``. Both refresh
+        once each time the processed-scan count passes a multiple of
+        ``cfg.snapshot_every``: reading the map pulls the grid from the
+        device, so refreshing every scan would serialise the batched
+        stepping. Stepping one scan at a time that is icp_tpu's
+        ``scans % snapshot_every == 0``; batched, the count moves a batch
+        at a time, and the refresh comes with the batch that passes the
+        multiple (icp_tpu refreshes only where a batch ends on one, and
+        then once per submitted scan). Returns the PNG's path where one
+        was written."""
+        cfg = self.cfg
+        if not cfg.live_map or self.mapper is None:
+            return None
+        self._drain_pending()
+        every = max(int(cfg.snapshot_every), 1)
+        if self.stats.scans // every <= self._snapshot_scans // every:
+            return None
+        self._snapshot_scans = self.stats.scans
+        self.sync_map()
+        traj = np.array([[p[0, 2], p[1, 2]] for p in self.pose_trajectory])
+
+        from icp_tpu_torch.utils.liveview import LiveMapView
+        if not self._live_view_failed and (
+            self._live_view is not None or LiveMapView.available()
+        ):
+            try:
+                if self._live_view is None:
+                    self._live_view = LiveMapView(
+                        self.mapper,
+                        window_width=cfg.window_width,
+                        window_height=cfg.window_height,
+                        cmap=cfg.cmap, clim_min=cfg.clim_min,
+                        clim_max=cfg.clim_max, background=cfg.background,
+                        trajectory_color=cfg.trajectory_color,
+                        pose_color=cfg.pose_color, pose_size=cfg.pose_size,
+                    )
+                self._live_view.update(traj)
+                return None
+            except Exception:
+                # window died (user closed it / backend error): fall back
+                self._live_view = None
+                self._live_view_failed = True
+
+        os.makedirs(cfg.snapshot_dir, exist_ok=True)
+        path = os.path.join(cfg.snapshot_dir,
+                            f"map_{self.stats.scans:05d}.png")
+        self.mapper.save_png(path, trajectory=traj)
+        return path
 
     def _bookkeep_fused(self, points_2d, out_pose, out_error, out_accepted,
                         out_sub, out_err_inc, out_iters) -> bool:
@@ -1364,9 +1423,6 @@ def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda",
     """
     if isinstance(cfg, dict):
         cfg = SlamConfig.from_dict(cfg)
-    if cfg.live_map:
-        print("  [warn] display.live_map is not ported yet; running headless")
-
     imu = None
     if cfg.imu_enabled and cfg.imu_file:
         imu = IMUService(cfg.imu_file)
@@ -1411,6 +1467,7 @@ def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda",
                     flush()
             if not init_scan:
                 submitted += 1   # init scan doesn't count (slam.py:388-453)
+            engine.maybe_snapshot()
             if cfg.num_scans is not None and submitted >= cfg.num_scans:
                 break
         flush()
@@ -1419,4 +1476,5 @@ def run_slam(cfg: SlamConfig | dict, verbose: bool = True, device="cuda",
 
     engine.finish()
     engine.sync_map()
+    engine.lidar_parser = service.parser
     return engine.global_pose, engine.pose_trajectory, engine.mapper, engine

@@ -1,4 +1,6 @@
-from icp_tpu_torch.models.icp import icp, icp_core, icp_large, ICPResult  # noqa: F401
+from icp_tpu_torch.models.icp import (  # noqa: F401
+    icp, icp_core, icp_large, identity_init, ICPResult,
+)
 from icp_tpu_torch.models.prealign import rotation_search, submap_rotation_search  # noqa: F401
 from icp_tpu_torch.models.features import (  # noqa: F401
     extract_keypoints, compute_descriptors, match_descriptors,

@@ -1,5 +1,6 @@
 """Iterative Closest Point on masked clouds (counterpart of
-icp_tpu.models.icp: ``ICPResult``, ``icp_core``, ``icp``, ``icp_large``).
+icp_tpu.models.icp: ``ICPResult``, ``icp_core``, ``icp``, ``identity_init``,
+``icp_large``).
 
 Each iteration is {NN query, correspondence gate, closed-form solve,
 accumulate, convergence check} on device tensors. icp_tpu runs the loop as
@@ -24,7 +25,7 @@ import torch
 from icp_tpu_torch.ops.eig2 import estimate_normals
 from icp_tpu_torch.ops.hopper.nn_kernel import nn_cuda
 from icp_tpu_torch.ops.nn import nn_query
-from icp_tpu_torch.ops.rigid import p2l_solve_2d, p2p_solve_2d
+from icp_tpu_torch.ops.rigid import p2l_solve_2d, p2p_solve_2d, p2p_solve_3d
 from icp_tpu_torch.ops.voxel import voxel_downsample
 from icp_tpu_torch.utils.masking import masked_mean
 
@@ -33,8 +34,8 @@ _CHUNK = 8          # ICP iterations between two reads of the stop flag
 
 
 class ICPResult(NamedTuple):
-    R: torch.Tensor          # (2, 2) accumulated rotation
-    t: torch.Tensor          # (2,) accumulated translation
+    R: torch.Tensor          # (D, D) accumulated rotation
+    t: torch.Tensor          # (D,) accumulated translation
     error: torch.Tensor      # scalar mean squared NN residual
     iters: torch.Tensor      # iterations executed (int32)
     n_inliers: torch.Tensor  # inlier count at the last executed iteration
@@ -55,21 +56,25 @@ def icp_core(
     use_gate: bool = False,
     nn_impl: str = "auto",
 ):
-    """ICP on already-downsampled masked 2-D clouds.
+    """ICP on already-downsampled masked clouds, D in {2, 3}.
 
-    source/target (N, 2)/(M, 2) with masks; R_init (2, 2), t_init (2,).
-    ``nn_impl``: "xla" uses the plain torch distance-matrix query
-    (ops/nn.nn_query); any other value uses the NN kernel wrapper
+    source/target (N, D)/(M, D) with masks; R_init (D, D), t_init (D,).
+    ``nn_impl``, for D = 2: "xla" uses the plain torch distance-matrix
+    query (ops/nn.nn_query); any other value uses the NN kernel wrapper
     ``nn_cuda``, which launches the CUDA kernel on CUDA tensors and runs
     its plain version on CPU tensors. Both break ties toward the lower
-    index.
+    index. For D = 3 the query is always ``nn_query`` and the solve the
+    point-to-point SVD, whatever ``nn_impl`` and ``method`` say: icp_tpu
+    has no 3-D kernel and estimates no 3-D normals.
     """
-    if source.shape[1] != 2:
-        raise NotImplementedError("the port's icp_core is 2-D only")
+    dim = source.shape[1]
+    if dim not in (2, 3):
+        raise ValueError(f"icp_core takes (N, 2) or (N, 3) clouds, got "
+                         f"{tuple(source.shape)}")
     dev = source.device
     f32 = torch.float32
-    use_p2l = method == "point_to_line"
-    use_kernel = nn_impl != "xla"
+    use_p2l = method == "point_to_line" and dim == 2
+    use_kernel = nn_impl != "xla" and dim == 2
 
     n_valid = src_mask.to(f32).sum()
     min_inliers = torch.clamp(torch.floor(n_valid / 10.0), min=3.0)
@@ -108,8 +113,10 @@ def icp_core(
             if use_p2l:
                 r, t = p2l_solve_2d(transformed, nearest,
                                     target_normals[nn_idx], w)
-            else:
+            elif dim == 2:
                 r, t = p2p_solve_2d(transformed, nearest, w)
+            else:
+                r, t = p2p_solve_3d(transformed, nearest, w)
 
             new_transformed = transformed @ r.T + t
             sq = ((nearest - new_transformed) ** 2).sum(-1)
@@ -155,6 +162,12 @@ def icp(
         error_threshold=error_threshold, max_corr_dist=max_corr_dist,
         use_gate=use_gate, nn_impl=nn_impl,
     )
+
+
+def identity_init(dim: int = 2, device="cuda"):
+    """Identity (R, t) pair for the 'no initial guess' case."""
+    return (torch.eye(dim, dtype=torch.float32, device=device),
+            torch.zeros(dim, dtype=torch.float32, device=device))
 
 
 def _row_bound(occupied: int, qcells: int) -> int:

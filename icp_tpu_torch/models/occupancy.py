@@ -39,8 +39,13 @@ class OccupancyGrid2D:
         log_odds_min=-5.0,
         log_odds_max=5.0,
         max_ray_cells: int = 2048,
-        device="cpu",
+        free_cells_cap: int | None = None,
+        device="cuda",
     ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("OccupancyGrid2D(device='cuda') but CUDA is "
+                               "not available; pass device='cpu' explicitly")
         self.min_x = float(min_x)
         self.max_x = float(max_x)
         self.min_y = float(min_y)
@@ -53,7 +58,10 @@ class OccupancyGrid2D:
         self.log_odds_min = float(log_odds_min)
         self.log_odds_max = float(log_odds_max)
         self.max_ray_cells = int(max_ray_cells)
-        self.device = torch.device(device)
+        # icp_tpu's capacity of its sorted free-cell scatter. Kept so the
+        # same constructor call works; the paint here needs no capacity.
+        self.free_cells_cap = (None if free_cells_cap is None
+                               else int(free_cells_cap))
         self.log_odds = torch.zeros((self.ny, self.nx), dtype=torch.float32,
                                     device=self.device)
 
@@ -112,9 +120,18 @@ class OccupancyGrid2D:
         self.log_odds = torch.zeros((self.ny, self.nx), dtype=torch.float32,
                                     device=self.device)
 
-    # ── probability (reference mapping.py:150-160) ──────────────────────
+    # ── probability / display (reference mapping.py:150-160) ────────────
     def to_probability(self):
         return torch.sigmoid(self.log_odds).cpu().numpy()
+
+    def to_display(self):
+        """Display map: 1 - p, with unexplored cells white (1.0) and free
+        cells light grey (0.85). One device read, then numpy."""
+        lo = self.log_odds.cpu().numpy()
+        display = 1.0 - (1.0 / (1.0 + np.exp(-lo)))
+        display[lo == 0.0] = 1.0
+        display[lo < 0.0] = 0.85
+        return display
 
     # ── export (reference mapping.py:183-187) ────────────────────────────
     def save_csv(self, file_path):
@@ -122,3 +139,19 @@ class OccupancyGrid2D:
 
     def save_npy(self, file_path):
         np.save(file_path, self.to_probability())
+
+    def save_png(self, file_path, trajectory=None):
+        """Headless map render: greyscale PNG of the display map, y up,
+        with the trajectory (N, 2) overlaid in red where given."""
+        from icp_tpu_torch.utils.raster import COLORS, write_png
+        img8 = (self.to_display() * 255).astype(np.uint8)[::-1]  # y-up
+        img = np.stack([img8] * 3, axis=-1)
+        if trajectory is not None and len(trajectory):
+            t = np.asarray(trajectory)
+            ix = np.clip(((t[:, 0] - self.min_x) / self.resolution).astype(int),
+                         0, self.nx - 1)
+            iy = np.clip(((t[:, 1] - self.min_y) / self.resolution).astype(int),
+                         0, self.ny - 1)
+            img[(self.ny - 1) - iy, ix] = COLORS["red"]
+        write_png(file_path, img)
+        return True

@@ -178,8 +178,11 @@ class PoseGraph2D:
     # re-runs the solve with (H + lambda diag(H)) dx = -b
     _lm_ladder = (1e-3, 1e-1, 10.0, 1e3)
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("PoseGraph2D(device='cuda') but CUDA is not "
+                               "available; pass device='cpu' explicitly")
         self._nodes: list[np.ndarray] = []
         self._edges_i: list[int] = []
         self._edges_j: list[int] = []

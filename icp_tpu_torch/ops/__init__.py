@@ -3,7 +3,9 @@ from icp_tpu_torch.ops.nn import (  # noqa: F401
 )
 from icp_tpu_torch.ops.voxel import voxel_downsample, voxel_downsample_fixed  # noqa: F401
 from icp_tpu_torch.ops.eig2 import eigh2x2, estimate_normals, compute_curvature  # noqa: F401
-from icp_tpu_torch.ops.rigid import p2p_solve_2d, p2l_solve_2d, solve3x3  # noqa: F401
+from icp_tpu_torch.ops.rigid import (  # noqa: F401
+    p2p_solve_2d, p2p_solve_3d, p2l_solve_2d, solve3x3,
+)
 from icp_tpu_torch.ops.sweep import sweep_scores  # noqa: F401
 from icp_tpu_torch.ops.ransac import ransac_align  # noqa: F401
 from icp_tpu_torch.ops.raytrace import (  # noqa: F401

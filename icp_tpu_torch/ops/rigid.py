@@ -1,5 +1,5 @@
 """Closed-form rigid-alignment solves (counterpart of icp_tpu.ops.rigid:
-``p2p_solve_2d``, ``solve3x3``, ``p2l_solve_2d``), plus
+``p2p_solve_2d``, ``p2p_solve_3d``, ``solve3x3``, ``p2l_solve_2d``), plus
 ``p2p_solve_2d_batched``, the form of ``jax.vmap(p2p_solve_2d)`` that
 RANSAC fits its hypotheses with."""
 from __future__ import annotations
@@ -28,6 +28,27 @@ def p2p_solve_2d(src, dst, w):
     W = s.T @ d
     theta = torch.atan2(W[0, 1] - W[1, 0], W[0, 0] + W[1, 1])
     R = rotmat(theta)
+    t = mu_d - R @ mu_s
+    return R, t
+
+
+def p2p_solve_3d(src, dst, w):
+    """Weighted 3D Kabsch: the SVD of the 3 x 3 cross-covariance with the
+    reflection fix on V's last column by sign(det(V U^T)).
+
+    src, dst (N, 3); w (N,) nonnegative weights. ``torch.linalg.svd`` is a
+    library call here as ``jnp.linalg.svd`` is in icp_tpu (one tiny
+    factorisation per ICP iteration); on CUDA it may synchronise.
+    """
+    mu_s, mu_d = _weighted_centroids(src, dst, w)
+    s = (src - mu_s) * w[:, None]
+    d = dst - mu_d
+    W = s.T @ d                                          # (3, 3)
+    U, _, Vt = torch.linalg.svd(W)
+    V = Vt.T
+    det = torch.linalg.det(V @ U.T)
+    V = torch.cat([V[:, :-1], V[:, -1:] * torch.sign(det)], dim=1)
+    R = V @ U.T
     t = mu_d - R @ mu_s
     return R, t
 

@@ -195,7 +195,8 @@ def test_replay_matches_icp_tpu_and_leaves_aliases_alone():
     masks[4] = False                            # a padding keyframe
     jg = JGrid(-10, 10, -10, 10, resolution=0.2, max_ray_cells=128,
                free_cells_cap=8192)
-    tg = TGrid(-10, 10, -10, 10, resolution=0.2, max_ray_cells=128)
+    tg = TGrid(-10, 10, -10, 10, resolution=0.2, max_ray_cells=128,
+               device="cpu")
     alias = tg.log_odds
     alias.fill_(1.5)
     jg.replay(origins, hits, masks)

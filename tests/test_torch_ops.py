@@ -266,7 +266,8 @@ def test_occupancy_grid_matches_jax(tmp_path):
     rng = np.random.default_rng(9)
     kw = dict(resolution=0.1, p_hit=0.85, p_miss=0.42, log_odds_min=-8.0,
               log_odds_max=8.0, max_ray_cells=128)
-    gt, gj = TGrid(-5, 5, -4, 4.5, **kw), JGrid(-5, 5, -4, 4.5, **kw)
+    gt = TGrid(-5, 5, -4, 4.5, device="cpu", **kw)
+    gj = JGrid(-5, 5, -4, 4.5, **kw)
     for k in range(2):
         origin = rng.uniform(-1, 1, 2).astype(np.float32)
         hits = rng.uniform(-6, 6, (50, 2)).astype(np.float32)

@@ -53,7 +53,7 @@ def _chain_graph(pg, n=30, robust_flag=False, bad_weight=5e4):
 
 def _pair(build, **kw):
     """The same graph in both packages."""
-    return build(J.PoseGraph2D(), **kw), build(T.PoseGraph2D(), **kw)
+    return build(J.PoseGraph2D(), **kw), build(T.PoseGraph2D("cpu"), **kw)
 
 
 def _random_graph(seed, n=40, e=90):
@@ -215,7 +215,7 @@ def test_cg_path_matches_icp_tpu_and_dense():
     assert gt.last_strategy == gj.last_strategy == "cg"
     nt = np.stack(gt.nodes)
     np.testing.assert_allclose(nt, np.stack(gj.nodes), atol=5e-4)
-    dense = _chain_with_closures(T.PoseGraph2D(), closures=closures)
+    dense = _chain_with_closures(T.PoseGraph2D("cpu"), closures=closures)
     dense._edges_rb[-1] = True
     dense.optimize(n_iterations=30)
     assert dense.last_strategy == "dense"
@@ -287,7 +287,7 @@ def test_coarse_correct_through_optimize_matches():
 def test_graph_accessors_and_guards():
     """get_poses_as_matrices, packing buckets after reserve(), the no-op
     cases, vec/pose round trips, and set_mesh refusing (not ported)."""
-    gj, gt = J.PoseGraph2D(), T.PoseGraph2D()
+    gj, gt = J.PoseGraph2D(), T.PoseGraph2D("cpu")
     for g in (gj, gt):
         g.optimize()                               # empty: no-op
         g.add_node([1.0, 2.0, 0.5])

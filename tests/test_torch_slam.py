@@ -352,6 +352,42 @@ def test_features_and_modular_engines_match_icp_tpu(dryrun, monkeypatch,
                                np.asarray(ej.mapper.log_odds), atol=1e-3)
 
 
+@pytest.mark.parametrize("use_imu", [True, False],
+                         ids=["modular_imu", "modular_rotation_search"])
+def test_modular_rotation_search_matches_icp_tpu(dryrun, use_imu):
+    """The modular path (tpu.fused: false) with the dryrun config's
+    rotation search: with an IMU (the yaw seeds the ICP) and without one
+    (the search does). Per scan in icp_tpu, through process_scans_batched
+    in the port. Every counter equal, positions within 1e-5 m, maps within
+    1e-3."""
+    import copy
+
+    from icp_tpu.engine import SlamEngine
+    from icp_tpu.services.imu import IMUService
+    from icp_tpu.utils.config import SlamConfig
+
+    gt, scans, rels, imu_f = dryrun
+    d = copy.deepcopy(DRYRUN_CFG)
+    d["tpu"]["fused"] = False
+    et = _drive(TEngine(TConfig.from_dict(d),
+                        imu=TIMU(imu_f) if use_imu else None, verbose=False,
+                        device="cpu"), scans, rels)
+    ej = SlamEngine(SlamConfig.from_dict(d),
+                    imu=IMUService(imu_f) if use_imu else None, verbose=False)
+    for p, r in zip(scans, rels):
+        ej.process_scan(p, r)
+    ej.sync_map()
+    assert et._state is None and ej._state is None
+    for f in ("scans", "rejected", "submap_corrections", "icp_iters",
+              "sweep_dropped_voxels", "truncated_scans"):
+        assert getattr(et.stats, f) == getattr(ej.stats, f), f
+    pt, pj = np.stack(et.pose_trajectory), np.stack(ej.pose_trajectory)
+    assert len(pt) >= 7
+    np.testing.assert_allclose(pt[:, :2, 2], pj[:, :2, 2], atol=1e-5)
+    np.testing.assert_allclose(et.mapper.log_odds.numpy(),
+                               np.asarray(ej.mapper.log_odds), atol=1e-3)
+
+
 def test_features_step_from_shared_state_matches_icp_tpu(dryrun, monkeypatch):
     """icp_tpu's mid-run features-mode state (its cache of the previous
     scan's features included) handed to both fused steps through
