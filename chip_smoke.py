@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (icp_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --mesh     # phase 16 and phases 4-6 and 12 it
+                                     # is held against (on 1-4 cards)
 
 Phases (any failed check ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -74,8 +76,23 @@ Phases (any failed check ends the run with a non-zero exit code):
      tests/test_icp.py's 3-D case (418 points in 512 slots, 25 degrees
      about Y): error < 1e-4, R within 2e-2; print iterations, ms an
      alignment and ms a 3 x 3 SVD by CUDA events, and kernel launches an
-     iteration; then entry()'s registration step once: finite R, t, error.
-Phases 11-12, 14 and 15 run after phase 7 and before phases 8-10, whose
+     iteration; then entry()'s registration step once: finite R, t, error;
+ 16. the device mesh (parallel/): 4 virtual shards of the one card, or
+     min(4, count) real cards. The sharded sweep at the LC shape bit-equal
+     to the unsharded one; block paint and replay at config #5's 896 x 880
+     grid within 1e-4 of the whole-grid paint; sharded dense, PCG and Schur
+     GN steps on a 1024-node chain with closures against their one-shard
+     versions (rtol 1e-4 / atol 1e-5); psum and paint times; phase 6's run
+     with distributed: true and dist_node_threshold 2 (the same closures,
+     Schur reached, ATE <= 0.030 m, positions within 5 mm plus phase 5's
+     spread of phase 6's); phase 12's run over the mesh (ATE <= 0.15 m,
+     >= 1 closure and BA through schur or dist_cg, positions within 1 cm of
+     phase 12's, the gathered map of its shape) and time_gn_step by
+     strategy, counters reset before each run; two processes joined by
+     init_distributed (gloo on one card, nccl with a card each) through a
+     psum, a GN step and a 30-scan pipeline, held to each other and to one
+     process; and dryrun_multichip(D).
+Phases 11-12, 14-16 run after phase 7 and before phases 8-10, whose
 torch.profiler window slows what comes after it; phase 13 (profiled
 itself), a profile of 12 scaled scans and the 3-D ICP's launch count come
 last.
@@ -125,7 +142,9 @@ BENCH_CFG = {
     "service": {"loop": False},
     "display": {"live_map": False},
     "tpu": {"scan_capacity": 768, "submap_capacity": 4096,
-            "max_ray_cells": 448, "batch_scans": BATCH, "nn_impl": "auto"},
+            "max_ray_cells": 448, "batch_scans": BATCH, "nn_impl": "auto",
+            # one card even where more are visible; phase 16 sets true
+            "distributed": False},
 }
 # benchmarks/bench_suite.py's loop-closure section (its "lc" row)
 LC_SECTION = {"enabled": True, "distance_threshold": 3.0, "min_interval": 80,
@@ -183,6 +202,23 @@ def time_ms(fn, iters=100, warmup=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sync_ms(fn, devices, iters=20, warmup=3):
+    """Mean ms per call of fn() by the host clock over ``iters`` calls,
+    every card in ``devices`` synchronized before and after: a call whose
+    work spans several cards is timed to its last card's end."""
+    cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+    for _ in range(warmup):
+        fn()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    return 1e3 * (time.perf_counter() - t0) / iters
 
 
 def graph_ms(fn, calls=20, replays=10):
@@ -540,9 +576,10 @@ def run_engine(cfg, imu, scans, rels, dev, warmup=False, probe=None):
     return eng, time.perf_counter() - t0
 
 
-def _chain_with_closures(pg, n):
+def _chain_with_closures(pg, n, every=None):
     """tests/test_pose_graph.py's noisy circular chain (radius 5 m) with
-    its three closures scaled to n nodes."""
+    its three closures scaled to n nodes; ``every``: also a closure from
+    each every-th node to the one ``every`` nodes on."""
     rng = np.random.default_rng(1)
     ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
     true = np.stack([np.cos(ang) * 5, np.sin(ang) * 5,
@@ -560,6 +597,9 @@ def _chain_with_closures(pg, n):
         pg.add_edge(k - 1, k, rel(true[k - 1], true[k]), np.eye(3))
     for i, j in ((0, n // 2), (10 * n // 96, 60 * n // 96),
                  (20 * n // 96, 80 * n // 96)):
+        pg.add_edge(i, j, rel(true[i], true[j]), np.eye(3) * 50.0)
+    for i in range(0, n, every) if every else ():
+        j = (i + every) % n
         pg.add_edge(i, j, rel(true[i], true[j]), np.eye(3) * 50.0)
     return pg
 
@@ -1067,7 +1107,8 @@ def scaled_phase(dev, card) -> dict:
     assert ate_ba <= SCALED_ATE_BOUND_M, \
         f"scaled ATE {ate_ba:.4f} m > {SCALED_ATE_BOUND_M} m"
     return {"launches": launches, "sps": sps, "ate_stream": ate_stream,
-            "ate": ate_ba, "peak_bytes": peak,
+            "ate": ate_ba, "peak_bytes": peak, "traj": traj,
+            "map_shape": tuple(lo.shape),
             "stats": {k: v for k, v in st.__dict__.items()}}
 
 
@@ -1235,17 +1276,392 @@ def icp3d_phase(dev, card, td):
     return align, -(-iters // _CHUNK) * _CHUNK
 
 
+# tests/test_multiprocess_dist.py's 30-scan pipeline, through the port
+PIPE_KW = dict(scan_capacity=1536, extent=10.0, map_resolution=0.25,
+               map_margin=4.0, max_range=9.0, icp_max_corr=1.5,
+               icp_max_iterations=25, icp_grid_shape=(32, 32),
+               icp_cell_cap=64, icp_qcells=1024, kf_capacity=1024,
+               kf_voxel=0.2, lc_every=2, lc_min_interval=16, lc_distance=3.0,
+               lc_min_travel=8.0, lc_error_threshold=0.08,
+               dist_node_threshold=2)
+
+MP_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+from icp_tpu_torch.parallel.dist_pose_graph import gn_step_sharded
+from icp_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from icp_tpu_torch.parallel.scaled import ScaledPipeline
+from icp_tpu_torch.utils.synth import large_scan_stream, make_dense_world
+
+rank, world = int(os.environ["MP_RANK"]), int(os.environ["MP_WORLD"])
+assert init_distributed(os.environ["MP_COORD"], world, rank,
+                        backend=os.environ["MP_BACKEND"])
+mesh = make_mesh(world, device="cuda")      # one shard a process
+assert mesh.size == world and mesh.local_size == 1, mesh
+dev = mesh.devices[0]
+local = torch.arange(8.0, device=dev) + 100.0 * rank
+psum = float(mesh.psum([local.sum()])[0])
+rng = np.random.default_rng(7)
+n = 16
+nodes = np.cumsum(rng.normal(scale=0.1, size=(n, 3)), 0).astype(np.float32)
+ei = np.concatenate([np.arange(n - 1), [n - 1]])
+ej = np.concatenate([np.arange(1, n), [0]])
+z = rng.normal(scale=0.05, size=(n, 3)).astype(np.float32)
+om = np.broadcast_to(np.eye(3, dtype=np.float32), (n, 3, 3)).copy()
+t = lambda a: torch.as_tensor(a, device=dev)
+ones = torch.ones(n, dtype=torch.bool, device=dev)
+gn = gn_step_sharded(mesh, t(nodes), ones, t(ei), t(ej), t(z), t(om), ones, 0)
+world = make_dense_world(np.random.default_rng(0), n_points=120_000,
+                         extent=10.0, n_walls=60)
+pipe = ScaledPipeline(mesh, **json.loads(os.environ["MP_KW"]))
+for scan, _ in large_scan_stream(30, n_points=1536, extent=10.0, max_range=9.0,
+                                 noise=0.01, seed=1, world_points=world):
+    pipe.step(scan)
+pipe.optimize(n_iterations=10)
+prob = pipe.map_probability()
+np.savez(os.environ["MP_OUT"], gn=gn.cpu().numpy(),
+         traj=np.stack([m[:2, 2] for m in pipe.trajectory]), prob=prob)
+print("MP_OK", rank, psum, pipe.stats.scans, pipe.stats.ba_runs,
+      pipe.pose_graph.last_strategy, flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def two_process_check(dev, card, td) -> dict:
+    """Two processes joined by init_distributed: gloo over CUDA tensors
+    (host-staged) where the ranks share one card, NCCL where each rank has
+    its own. Both run test_multiprocess_dist.py's psum and GN step and its
+    30-scan ScaledPipeline (grid one block a process, Schur BA across the
+    processes); both must exit 0 and agree with each other and with a
+    one-process run (ATE under 1e-3 m)."""
+    import socket
+
+    from icp_tpu_torch.parallel.dist_pose_graph import gn_step_sharded
+    from icp_tpu_torch.parallel.mesh import make_mesh, set_virtual_devices
+    from icp_tpu_torch.parallel.scaled import ScaledPipeline
+    from icp_tpu_torch.utils.synth import large_scan_stream, make_dense_world
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = os.path.join(td, "mp_worker.py")
+    with open(script, "w") as f:
+        f.write(MP_WORKER)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = []
+    for rank in (0, 1):
+        env = dict(os.environ, PYTHONPATH=repo, MP_RANK=str(rank), MP_WORLD="2",
+                   OMP_NUM_THREADS="2",
+                   MP_COORD=f"127.0.0.1:{port}", MP_BACKEND=backend,
+                   MP_KW=json.dumps(PIPE_KW),
+                   MP_OUT=os.path.join(td, f"mp{rank}.npz"))
+        procs.append(subprocess.Popen([sys.executable, script], env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} exit {p.returncode}: {se[-2000:]}"
+        assert f"MP_OK {rank} 856.0 30" in so, so
+    r0, r1 = (np.load(os.path.join(td, f"mp{k}.npz")) for k in (0, 1))
+    for key in ("gn", "traj", "prob"):
+        assert np.array_equal(r0[key], r1[key]), f"ranks disagree on {key}"
+
+    # the same in one process: a 2-shard virtual mesh for the GN step, one
+    # device for the pipeline
+    rng = np.random.default_rng(7)
+    n = 16
+    nodes = np.cumsum(rng.normal(scale=0.1, size=(n, 3)), 0).astype(np.float32)
+    ei = np.concatenate([np.arange(n - 1), [n - 1]])
+    ej = np.concatenate([np.arange(1, n), [0]])
+    z = rng.normal(scale=0.05, size=(n, 3)).astype(np.float32)
+    om = np.broadcast_to(np.eye(3, dtype=np.float32), (n, 3, 3)).copy()
+    set_virtual_devices(2, dev)
+    mesh2 = make_mesh(2, device="cuda")
+    set_virtual_devices(0, dev)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    gn = gn_step_sharded(mesh2, t(nodes), ones, t(ei), t(ej), t(z), t(om),
+                         ones, 0).cpu().numpy()
+    gn_gap = float(np.abs(gn - r0["gn"]).max())
+    world = make_dense_world(np.random.default_rng(0), n_points=120_000,
+                             extent=10.0, n_walls=60)
+    pipe = ScaledPipeline(dev, **PIPE_KW)
+    for scan, _ in large_scan_stream(30, n_points=1536, extent=10.0,
+                                     max_range=9.0, noise=0.01, seed=1,
+                                     world_points=world):
+        pipe.step(scan)
+    pipe.optimize(n_iterations=10)
+    want = np.stack([m[:2, 2] for m in pipe.trajectory])
+    traj = r0["traj"]
+    assert traj.shape == want.shape, (traj.shape, want.shape)
+    mp_ate = float(np.sqrt(np.mean(np.sum((traj - want) ** 2, axis=1))))
+    log(f"two processes ({backend}, {'one card' if backend == 'gloo' else 'a card each'}): "
+        f"psum 856.0 on both ranks, GN step equal on both and within "
+        f"{gn_gap:.3g} of one process's 2-shard mesh; 30-scan ScaledPipeline "
+        f"equal on both ranks, {mp_ate:.3g} m ATE against one process "
+        f"(bound 1e-3 m); {wall:.1f} s for the two processes on {card}")
+    assert gn_gap <= 1e-5, gn_gap
+    assert mp_ate < 1e-3, f"2-process vs 1-process ATE {mp_ate:.5f} m"
+    return {"backend": backend, "ate": mp_ate, "gn_gap": gn_gap, "wall": wall}
+
+
+def mesh_phase(dev, card, td, base) -> dict:
+    """Phase 16: the device mesh. ``base`` holds phase 5's single-device
+    pose spread, phase 6's engine and phase 12's pipeline. With one card,
+    4 virtual shards of it; with 2 or more, min(4, count) real cards.
+    Returns the kernels' launch counts of the engine and the scaled
+    pipeline on the mesh."""
+    from icp_tpu_torch.models.pose_graph import PoseGraph2D, optimize_dense
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+    from icp_tpu_torch.ops.raytrace import (raytrace_update,
+                                            raytrace_update_batched)
+    from icp_tpu_torch.ops.sweep import sweep_scores
+    from icp_tpu_torch.parallel import dist_pose_graph as DP
+    from icp_tpu_torch.parallel import sharded_grid as SG
+    from icp_tpu_torch.parallel.mesh import make_mesh, set_virtual_devices
+    from icp_tpu_torch.parallel.sweep_shard import sweep_scores_sharded
+    from icp_tpu_torch.tools.entry import dryrun_multichip
+    from icp_tpu_torch.utils.config import SlamConfig
+    from icp_tpu_torch.utils.metrics import ate
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    virtual = count < 2
+    if virtual:
+        set_virtual_devices(4, dev)
+    mesh = make_mesh(4 if virtual else min(4, count), device="cuda")
+    D = mesh.size
+    log(f"mesh phase: {'4 virtual shards of one card' if virtual else f'{D} real cards'} "
+        f"({mesh}); card {card}")
+    rng = np.random.default_rng(16)
+
+    def c(a, dt=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    # the sharded sweep at the LC sweep shape, bit for bit
+    src, tgt = c(_cloud(rng, 768, -9, 9)), c(_cloud(rng, 768, -9, 9))
+    m = torch.ones(768, dtype=torch.bool, device=dev)
+    angles, toff = c(np.deg2rad(np.arange(240) * 1.5 - 180.0)), c([0.3, -0.2])
+    got = sweep_scores_sharded(mesh, src, m, tgt, m, angles, toff)
+    want = sweep_scores(src, m, tgt, m, angles, toff)
+    torch.cuda.synchronize()
+    assert torch.equal(got.to(dev), want), "sharded sweep != unsharded"
+    log(f"  sweep_scores_sharded, 240 angles x 768 rows vs 768 targets on "
+        f"{D} shards: bit-equal to sweep_scores")
+
+    # block paint and replay at config #5's grid, an 8192-point keyframe
+    ny, nx, max_steps = 896, 880, 192
+    ang = rng.uniform(-np.pi, np.pi, 8192)
+    rad = rng.uniform(2.0, 35.0, 8192) / 0.25
+    origin = np.array([440, 448])
+    hits = c(np.stack([origin[0] + rad * np.cos(ang),
+                       origin[1] + rad * np.sin(ang)], 1), torch.int64)
+    ok = c(rng.random(8192) > 0.05, torch.bool)
+    o = c(origin, torch.int64)
+    kw = dict(max_steps=max_steps, ray_cells=hits[::8], ray_valid=ok[::8])
+    blocks = SG.raytrace_update_block_sharded(
+        mesh, SG.block_sharding(mesh, torch.zeros((ny, nx), device=dev)),
+        o, hits, ok, 0.85, -0.4, -np.inf, np.inf, **kw)
+    whole = raytrace_update(torch.zeros((ny, nx), device=dev), o, hits, ok,
+                            0.85, -0.4, -np.inf, np.inf, **kw)
+    paint_gap = float((mesh.all_gather(blocks).to(dev) - whole).abs().max())
+    B = 4
+    bo = c(np.tile(origin, (B, 1)) + rng.integers(-20, 20, (B, 2)), torch.int64)
+    bh = torch.stack([hits + c(rng.integers(-20, 20, 2), torch.int64)
+                      for _ in range(B)])
+    bok = ok.expand(B, -1)
+    bkw = dict(max_steps=max_steps, ray_cells=bh[:, ::8], ray_valid=bok[:, ::8])
+    blocks = SG.raytrace_replay_block_sharded(
+        mesh, SG.block_sharding(mesh, torch.zeros((ny, nx), device=dev)),
+        bo, bh, bok, 0.85, -0.4, -np.inf, np.inf, **bkw)
+    whole_b = raytrace_update_batched(torch.zeros((ny, nx), device=dev), bo,
+                                      bh, bok, 0.85, -0.4, -np.inf, np.inf,
+                                      **bkw)
+    replay_gap = float((mesh.all_gather(blocks).to(dev) - whole_b).abs().max())
+    grids = SG.block_sharding(mesh, torch.zeros((ny, nx), device=dev))
+    g1 = torch.zeros((ny, nx), device=dev)
+    paint_ms = sync_ms(lambda: SG.raytrace_update_block_sharded(
+        mesh, grids, o, hits, ok, 0.85, -0.4, -np.inf, np.inf, **kw),
+        mesh.devices)
+    whole_ms = sync_ms(lambda: raytrace_update(
+        g1, o, hits, ok, 0.85, -0.4, -np.inf, np.inf, **kw), [dev])
+    log(f"  block paint {ny}x{nx}, 8192 hits, 1024 rays: max |blocks - whole "
+        f"grid| {paint_gap:.3g}, replay of {B}: {replay_gap:.3g} (atol 1e-4); "
+        f"{paint_ms:.3f} ms on {D} shards against {whole_ms:.3f} ms whole "
+        f"(host clock, every card synchronized) on {card}")
+    assert paint_gap <= 1e-4 and replay_gap <= 1e-4, (paint_gap, replay_gap)
+
+    # dense, PCG and Schur GN steps on a 1024-node chain with closures: the
+    # three long ones of phase 7 and one every 16 nodes. With the long ones
+    # alone the f32 dense step is itself ~5e-4 m from a float64 step (an
+    # ill-conditioned H), too far for the rtol 1e-4 / atol 1e-5 check
+    pg = _chain_with_closures(PoseGraph2D(dev), 1024, every=16)
+    nodes, nm, ei, ej, z, om, em, rb = pg._packed_device()
+    dense, _ = optimize_dense(nodes, nm, ei, ej, z, om, em, 0,
+                              n_iterations=1, convergence_eps=0.0)
+    step_d = DP.gn_step_sharded(mesh, nodes, nm, ei, ej, z, om, em, 0)
+    step_c = DP.gn_step_cg_sharded(mesh, nodes, nm, ei, ej, z, om, em, 0,
+                                   cg_iters=50)
+    one_c = DP.gn_step_cg(nodes, nm, ei, ej, z, om, em, 0, cg_iters=50)
+    np_ = lambda x: x.cpu().numpy()  # noqa: E731
+    part = DP.partition_graph(nodes.shape[0], *(np_(x) for x in
+                                                (ei, ej, z, om, em)), D, 0)
+    step_s = DP.gn_step_schur_sharded(mesh, nodes, nm, part)
+    f64, _ = optimize_dense(nodes.double(), nm, ei, ej, z.double(),
+                            om.double(), em, 0, n_iterations=1,
+                            convergence_eps=0.0)
+    f64 = f64.float()
+    gaps = {"dense": float((step_d - dense).abs().max()),
+            "pcg": float((step_c - one_c).abs().max()),
+            "schur": float((step_s - dense).abs().max()),
+            "dense_f64": float((dense - f64).abs().max()),
+            "schur_f64": float((step_s - f64).abs().max())}
+    log(f"  GN steps on 1024 nodes ({int(part.sep_valid.sum())} separators): "
+        f"max |sharded dense - dense| {gaps['dense']:.3g}, |sharded PCG - "
+        f"one-shard PCG| {gaps['pcg']:.3g}, |Schur - dense| {gaps['schur']:.3g}; "
+        f"against a float64 dense step: f32 dense {gaps['dense_f64']:.3g}, "
+        f"Schur {gaps['schur_f64']:.3g}")
+    assert torch.allclose(step_d, dense, rtol=1e-4, atol=1e-5), gaps
+    assert torch.allclose(step_s, dense, rtol=1e-4, atol=1e-5), gaps
+    assert torch.allclose(step_c, one_c, rtol=0, atol=1e-4), gaps
+    Hs = [torch.randn(3 * 1024, 3 * 1024, device=d) for d in mesh.devices]
+    psum_ms = sync_ms(lambda: mesh.psum(Hs), mesh.devices)
+    log(f"  psum of {D} dense 3072x3072 f32 partials: {psum_ms:.3f} ms "
+        f"(host clock, every card synchronized) on {card}")
+
+    # the main path on the mesh: counters reset just before
+    K.reset_launch_counts()
+    lc_dict = dict(BENCH_CFG, loop_closure=LC_SECTION,
+                   tpu=dict(BENCH_CFG["tpu"], distributed=True,
+                            dist_node_threshold=2))
+    lc_cfg = SlamConfig.from_dict(lc_dict)
+    lc_cfg.num_scans = len(base["scans"])
+    eng, wall_e = run_engine(lc_cfg, base["imu"], base["scans"], base["rels"],
+                             dev, warmup=True)
+    launches_e = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    s = eng.stats
+    traj = np.stack(eng.pose_trajectory)
+    ate_e = ate(traj[:, :2, 2], base["gt"], indices=eng.pose_scan_indices)
+    ref = base["eng_lc"]
+    closures = lambda e: sorted((i, j) for i, j in zip(  # noqa: E731
+        e.pose_graph._edges_i, e.pose_graph._edges_j) if abs(i - j) != 1)
+    ref_traj = np.stack(ref.pose_trajectory)
+    assert traj.shape == ref_traj.shape, (traj.shape, ref_traj.shape)
+    gap_e = float(np.linalg.norm(traj[:, :2, 2] - ref_traj[:, :2, 2],
+                                 axis=1).max())
+    bound_e = 5e-3 + base["spread"]
+    log(f"  engine on the mesh (phase 6's loop closure, distributed: true, "
+        f"dist_node_threshold 2): loop_closures={s.loop_closures} "
+        f"closures {closures(eng)} (phase 6: {closures(ref)}), "
+        f"last_strategy {eng.pose_graph.last_strategy}, lc_pairs={s.lc_pairs} "
+        f"lc_groups={s.lc_groups} wall_lc_verify={s.wall_lc_verify:.3f} s "
+        f"wall_lc_apply={s.wall_lc_apply:.3f} s; ATE {ate_e:.4f} m (bound "
+        f"{LC_ATE_BOUND_M} m), max |mesh - phase 6| position {1e3 * gap_e:.3f} mm "
+        f"(bound 5 mm + the single-device spread {1e3 * base['spread']:.3f} mm); "
+        f"{(len(base['scans']) - 1) / wall_e:.2f} scans/s; launches {launches_e} "
+        f"on {card}")
+    assert eng.mesh is not None and eng.mesh.size == D, eng.mesh
+    assert eng.pose_graph.last_strategy.startswith("schur"), \
+        eng.pose_graph.last_strategy
+    assert s.loop_closures >= 1 and closures(eng) == closures(ref), \
+        (closures(eng), closures(ref))
+    assert ate_e <= LC_ATE_BOUND_M, f"mesh engine ATE {ate_e:.4f} m"
+    assert gap_e <= bound_e, f"mesh engine {gap_e:.5f} m from phase 6"
+
+    # config #5 on the mesh at full width, 400 scans
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe, gt, sps = run_scaled(mesh)
+    ate_stream = ate(np.stack(pipe.trajectory), gt, gt_offset=0)
+    pipe.optimize(n_iterations=15)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches_s = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    st = pipe.stats
+    straj = np.stack(pipe.trajectory)
+    ate_s = ate(straj, gt, gt_offset=0)
+    gap_s = float(np.linalg.norm(straj[:, :2, 2] - base["scaled_traj"][:, :2, 2],
+                                 axis=1).max())
+    grid = pipe.log_odds
+    log(f"  scaled pipeline on the mesh: {len(straj)} poses, {sps:.2f} scans/s "
+        f"after 3 warm scans, {wall_s:.1f} s; ATE {ate_stream:.4f} m streaming "
+        f"-> {ate_s:.4f} m after BA (bound {SCALED_ATE_BOUND_M} m); "
+        f"loop_closures={st.loop_closures} ba_runs={st.ba_runs} "
+        f"last_strategy {pipe.pose_graph.last_strategy}; wall_ba "
+        f"{st.wall_ba:.3f} s, wall_replay {st.wall_replay:.3f} s, wall_lc "
+        f"{st.wall_lc:.3f} s; max |mesh - phase 12| position "
+        f"{1e3 * gap_s:.3f} mm (bound 10 mm); map {tuple(grid.shape)} "
+        f"(phase 12 {base['scaled_shape']}) in {len(pipe.blocks)} blocks; "
+        f"launches {launches_s} on {card}")
+    assert len(straj) == SCALED_SCANS and np.isfinite(straj).all()
+    assert ate_s <= SCALED_ATE_BOUND_M, f"mesh scaled ATE {ate_s:.4f} m"
+    assert st.loop_closures >= 1 and st.ba_runs >= 1, st
+    assert pipe.pose_graph.last_strategy.split("+")[0] in ("schur", "dist_cg"), \
+        pipe.pose_graph.last_strategy
+    assert gap_s <= 1e-2, f"mesh scaled {gap_s:.5f} m from phase 12"
+    assert tuple(grid.shape) == base["scaled_shape"], grid.shape
+    assert bool(torch.isfinite(grid).all()) and not pipe._map_dirty
+    gn = {}
+    for strategy in ("schur", "cg"):
+        if strategy == "cg":
+            limit, pipe.pose_graph._max_separators = \
+                pipe.pose_graph._max_separators, 0
+        gn[strategy] = 1e3 * pipe.time_gn_step(reps=5)
+        assert pipe.gn_step_strategy == strategy, pipe.gn_step_strategy
+    pipe.pose_graph._max_separators = limit
+    log(f"  time_gn_step on the {pipe.pose_graph.n_nodes}-node graph, D = {D}: "
+        f"schur {gn['schur']:.2f} ms, cg {gn['cg']:.2f} ms a step "
+        f"(partition {1e3 * st.partition_wall:.2f} ms, host) on {card}")
+    for key in ("nn", "nn_min"):
+        assert launches_e[key] > 0 and launches_s[key] > 0, \
+            (launches_e, launches_s)
+    if virtual:
+        set_virtual_devices(0, dev)
+
+    mp = two_process_check(dev, card, td)
+    t0 = time.perf_counter()
+    if virtual:
+        set_virtual_devices(D, dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(D, device="cuda")
+    if virtual:
+        set_virtual_devices(0, dev)
+    log(f"  {buf.getvalue().strip()} ({time.perf_counter() - t0:.1f} s)")
+    wall = time.perf_counter() - t_phase
+    log(f"mesh phase: {wall:.1f} s on {card}")
+    return {"engine": launches_e, "scaled": launches_s, "mp": mp, "gn_ms": gn,
+            "wall": wall, "D": D, "virtual": virtual}
+
+
 def main():
+    mesh_only = sys.argv[1:] == ["--mesh"]
+    if sys.argv[1:] and not mesh_only:
+        sys.exit("usage: python3 chip_smoke.py [--mesh]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke test needs a CUDA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     with tempfile.TemporaryDirectory() as td:
-        run(td)
+        run(td, mesh_only)
 
 
-def run(td):
-    """Every phase; ``td`` holds the bench CSVs and what phase 13 writes."""
+def run(td, mesh_only=False):
+    """Every phase, or with ``mesh_only`` phase 16 and the phases it is
+    held against (4-6 without the kernel timings, 12); ``td`` holds the
+    bench CSVs and what phase 13 writes."""
     from icp_tpu_torch.engine import SlamEngine
     from icp_tpu_torch.ops.hopper import build
     from icp_tpu_torch.ops.hopper import nn_kernel as K
@@ -1286,7 +1702,7 @@ def run(td):
         "LC fine": (LC_SWEEP_ROWS[1], cfg.scan_capacity)}
     log(f"kernel checks (sweep caps {src_cap}, {tgt_cap}; nn_min_cuda sweep "
         f"shapes {sweep_shapes}):")
-    err = check_kernels(dev, sweep_shapes)
+    err = None if mesh_only else check_kernels(dev, sweep_shapes)
 
     # ── 4. the main path ─────────────────────────────────────────────────
     K.reset_launch_counts()
@@ -1315,14 +1731,20 @@ def run(td):
     # ── 5. warm pass and kernel timings ──────────────────────────────────
     eng2, wall2 = run_engine(cfg, imu, scans, rels, dev)
     traj2 = np.stack(eng2.pose_trajectory)
+    # two single-device passes differ by the CUDA scatter-adds' order
+    spread = (float(np.linalg.norm(traj2[:, :2, 2] - traj[:, :2, 2],
+                                   axis=1).max())
+              if traj2.shape == traj.shape else None)
     log(f"scans/s (warm pass, {n_steps} scans after the first): "
         f"{n_steps / wall2:.2f} ({wall2:.2f} s; cold pass {n_steps / wall1:.2f}) "
         f"on {card}; warm-pass max |pose diff| vs cold "
-        f"{float(np.abs(traj2 - traj).max()) if traj2.shape == traj.shape else 'n/a'}")
+        f"{float(np.abs(traj2 - traj).max()) if traj2.shape == traj.shape else 'n/a'}"
+        f", position {spread}")
 
     assert eng._sweep_caps == (src_cap, tgt_cap), eng._sweep_caps
-    timings = time_kernels(dev, cfg.scan_capacity, cfg.submap_capacity,
-                           sweep_shapes, card)
+    if not mesh_only:
+        timings = time_kernels(dev, cfg.scan_capacity, cfg.submap_capacity,
+                               sweep_shapes, card)
 
     # ── 6. the loop-closure path ─────────────────────────────────────────
     lc_dict = dict(BENCH_CFG, loop_closure=LC_SECTION)
@@ -1354,15 +1776,29 @@ def run(td):
     assert launches_lc["nn"] > 0, launches_lc
     assert launches_lc["nn_min"] > launches["nn_min"], (launches_lc, launches)
 
-    # ── 7. pose-graph solve timings ──────────────────────────────────────
-    time_pose_graph(dev, card)
-
-    # ── 11. icp_large at 100k points ─────────────────────────────────────
-    icp_large_phase(dev, card)
+    if not mesh_only:
+        # ── 7. pose-graph solve timings ──────────────────────────────────
+        time_pose_graph(dev, card)
+        # ── 11. icp_large at 100k points ─────────────────────────────────
+        icp_large_phase(dev, card)
 
     # ── 12. the scaled pipeline (BASELINE config #5), 400 scans ──────────
     scaled = scaled_phase(dev, card)
-    scaled_breakdown(dev, card)
+    if not mesh_only:
+        scaled_breakdown(dev, card)
+
+    # ── 16. the device mesh ──────────────────────────────────────────────
+    mesh = mesh_phase(dev, card, td, {
+        "scans": scans, "rels": rels, "imu": imu, "gt": gt, "eng_lc": eng_lc,
+        "spread": spread if spread is not None else 0.0,
+        "scaled_traj": scaled["traj"], "scaled_shape": scaled["map_shape"]})
+    if mesh_only:
+        print(card, flush=True)
+        print(json.dumps({"mesh": mesh}, default=str), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # ── 14. the native CSV parser; 15. 3-D ICP and entry() ───────────────
     parser_phase(os.path.join(td, "bench_lidar.csv"))
@@ -1372,6 +1808,8 @@ def run(td):
     launches_feat = features_phases(SlamConfig, ate, dev, card, gt, scans,
                                     rels, imu, ate_m)
     launches_feat["scaled"] = scaled["launches"]
+    launches_feat["mesh_engine"] = mesh["engine"]
+    launches_feat["mesh_scaled"] = mesh["scaled"]
 
     # ── 13. the file-driven path (profiled itself) ───────────────────────
     launches_feat["file_driven"] = file_driven_phase(dev, card, td, gt, n_steps)

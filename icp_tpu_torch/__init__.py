@@ -13,8 +13,9 @@ Layout:
              kernels, their build and bindings)
   models/    ICP (2-D and 3-D brute force, dense-grid icp_large), pre-alignment (rotation search, features/RANSAC),
              occupancy grid (with replay), SE(2) pose graph, fused SLAM step
-  parallel/  the single-device matrix-free PCG pose-graph solve and the
-             scaled pipeline (BASELINE config #5) on one device
+  parallel/  the device mesh (virtual shards, torch.distributed), sharded
+             sweep and grids, distributed pose-graph solves (dense, PCG,
+             Schur), the scaled pipeline (BASELINE config #5) over a mesh
   services/  lidar/IMU CSV ingestion (native parser, numpy without a compiler)
   runtime/   ctypes loader of the native CSV parser (csrc/fastcsv.cpp)
   utils/     SE(2) transforms, masking, config, synthetic data, metrics,
@@ -23,7 +24,8 @@ Layout:
              closure, checkpoints, live-map snapshots)
   cli.py     command-line entry
   demos/     3-D ICP correctness demo (teapot)
-  tools/     cloud viewers and players, ATE A/B, profiling, entry()
+  tools/     cloud viewers and players, ATE A/B, profiling, entry(),
+             dryrun_multichip()
 
 This package never imports jax.
 """

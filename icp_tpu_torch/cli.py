@@ -8,8 +8,12 @@ whole SLAM state at the end and ``--resume`` restores one first (the npz
 of either package); ``--map-png`` also renders the final map with the
 trajectory, and ``--profile DIR`` runs the engine under ``torch.profiler``
 and writes a Chrome trace into DIR. ``--scaled`` runs the scaled pipeline
-(parallel/scaled.py, BASELINE config #5) on one device instead of the
-engine, with its knobs under the config's ``scaled:`` section.
+(parallel/scaled.py, BASELINE config #5) instead of the engine, over a mesh
+of every visible device of ``--device``'s kind (``parallel.mesh.make_mesh``;
+one device, a one-shard mesh), with its knobs under the config's
+``scaled:`` section. It joins a multi-process run first where the launcher
+sets JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID
+(``parallel.mesh.init_distributed``), as icp_tpu's does.
 """
 from __future__ import annotations
 
@@ -46,10 +50,10 @@ def main(argv=None):
     parser.add_argument("--synth-noise", type=float, default=0.005)
     parser.add_argument("--scaled", action="store_true",
                         help="run the scaled pipeline (parallel/scaled.py: "
-                             "scan-to-submap registration, map allocated up "
-                             "front, online BA) on one device instead of "
-                             "the engine; knobs under the config's "
-                             "`scaled:` section")
+                             "scan-to-submap registration, block-sharded map "
+                             "allocated up front, online BA) over a mesh of "
+                             "the visible devices instead of the engine; "
+                             "knobs under the config's `scaled:` section")
     args = parser.parse_args(argv)
 
     from icp_tpu_torch.utils.config import SlamConfig
@@ -142,6 +146,7 @@ def _run_scaled(cfg, args):
     half-size of the grid allocated up front; submap_keyframes;
     kf_capacity / kf_voxel; the icp_* capacities; ba_every; replay_chunk)."""
     from icp_tpu_torch.engine import filter_and_flatten
+    from icp_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from icp_tpu_torch.parallel.scaled import ScaledPipeline
     from icp_tpu_torch.services.lidar import LidarService
     from icp_tpu_torch.utils.masking import next_pow2
@@ -210,7 +215,8 @@ def _run_scaled(cfg, args):
         )
     else:
         kw.update(lc_min_interval=10 ** 9)     # loop closure disabled
-    pipe = ScaledPipeline(args.device, **kw)
+    init_distributed()
+    pipe = ScaledPipeline(make_mesh(device=args.device), **kw)
     if cfg.lc_enabled:
         pipe.warm_replay()
 

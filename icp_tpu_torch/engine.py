@@ -31,7 +31,12 @@ engine's own (``_gen``) for the modular path and verification.
 ``display.live_map`` refreshes a matplotlib window, or PNG snapshots where
 there is no display, every ``snapshot_every`` scans (``maybe_snapshot``).
 
-Not ported yet (ROADMAP Queue 1): the device mesh (``distributed: true``).
+``tpu.distributed`` builds a device mesh (``parallel.mesh``) of the
+engine's device kind, as icp_tpu does: true needs more than one visible
+device, "auto" builds one wherever more than one is visible. On a mesh the
+pose graph solves through the distributed Schur-complement GN from
+``dist_node_threshold`` nodes up, and loop-closure verification runs pair k
+on local shard k mod D.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from icp_tpu_torch.models.slam_step import (SlamState, blank_feat_state,
                                             init_state, make_generator,
                                             make_slam_step)
 from icp_tpu_torch.ops.voxel import voxel_downsample_fixed
+from icp_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from icp_tpu_torch.services.imu import IMUService
 from icp_tpu_torch.services.lidar import LidarService
 from icp_tpu_torch.utils.config import SlamConfig
@@ -128,9 +134,10 @@ class SlamStats:
 
 
 class SlamEngine:
-    """Streaming SLAM engine on one device. Feed scans through
-    ``process_scan`` / ``process_scans_batched``, then ``finish()``; read
-    ``global_pose``, ``pose_trajectory`` and ``mapper``."""
+    """Streaming SLAM engine on ``device`` (and its mesh, if any). Feed
+    scans through ``process_scan`` / ``process_scans_batched``, then
+    ``finish()``; read ``global_pose``, ``pose_trajectory`` and
+    ``mapper``."""
 
     def __init__(self, cfg: SlamConfig, imu: IMUService | None = None,
                  verbose: bool = True, device="cuda"):
@@ -138,10 +145,6 @@ class SlamEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SlamEngine(device='cuda') but CUDA is not "
                                "available; pass device='cpu' explicitly")
-        if cfg.distributed is True:
-            raise NotImplementedError(
-                "tpu.distributed: true is not ported yet (ROADMAP Queue 1: "
-                "parallel/)")
         self.cfg = cfg
         self.imu = imu
         self.verbose = verbose
@@ -159,6 +162,19 @@ class SlamEngine:
         self.stats = SlamStats()
         # RANSAC stream of the modular path and of verification
         self._gen = make_generator(cfg.ransac_iterations, self.device)
+
+        # a 1-D mesh over the visible devices of the engine's kind (virtual
+        # shards included: parallel.mesh.set_virtual_devices) for the
+        # pose-graph solve and the loop-closure lanes
+        self.mesh = None
+        n_dev = len(visible_devices(self.device.type))
+        if cfg.distributed is True and n_dev < 2:
+            raise RuntimeError(f"tpu.distributed=true needs >1 device, found "
+                               f"{n_dev} of kind {self.device.type!r}")
+        if cfg.distributed is True or (cfg.distributed == "auto"
+                                       and n_dev > 1):
+            self.mesh = make_mesh(device=self.device.type)
+            self.pose_graph.set_mesh(self.mesh, cfg.dist_node_threshold)
 
         self._cap = cfg.scan_capacity
         self._sub_cap = cfg.submap_capacity
@@ -277,11 +293,12 @@ class SlamEngine:
         """Initial (R, t) of source onto target by the configured method:
         rotation search, then (features, both) feature alignment on the
         pre-rotated source, composed when it finds min_inliers inliers
-        (reference slam.py:68-88). "none" gives (I, 0)."""
+        (reference slam.py:68-88). "none" gives (I, 0). Runs on the clouds'
+        device; RANSAC draws from ``_gen`` on the engine's device."""
         cfg = self.cfg
         method = cfg.alignment_method
-        R0 = torch.eye(2, dtype=torch.float32, device=self.device)
-        t0 = torch.zeros(2, dtype=torch.float32, device=self.device)
+        R0 = torch.eye(2, dtype=torch.float32, device=sp.device)
+        t0 = torch.zeros(2, dtype=torch.float32, device=sp.device)
         if method in ("rotation_search", "both"):
             R0, t0, _ = rotation_search(
                 sp, sm, tp, tm,
@@ -428,25 +445,35 @@ class SlamEngine:
 
         ``pairs``: [(src_points, cand_points)] raw sensor-frame host
         arrays. Returns [(R, t, err, iters)] in pair order. Each pair is
-        padded to the scan capacity and registered on the device by the
-        configured pre-alignment (``_prealign``: rotation search and/or
-        feature alignment) + ICP, as one lane of icp_tpu's vmapped verifier
-        computes it; verification is
-        pose-independent, which is what lets the batched path verify a
-        whole chunk before its arbitration. Pairs run one after another;
-        every result is read after the last pair is queued. The groups of
-        L = next_pow2(max_candidates) pairs that icp_tpu dispatches are
-        counted in ``stats.lc_groups``.
+        padded to the scan capacity and registered by the configured
+        pre-alignment (``_prealign``: rotation search and/or feature
+        alignment) + ICP, as one lane of icp_tpu's vmapped verifier
+        computes it; verification is pose-independent, which is what lets
+        the batched path verify a whole chunk before its arbitration. Pair
+        k runs on the engine's device, or on the mesh's local shard k mod
+        D, its inputs moved there; a lane's RANSAC uniforms are drawn from
+        the engine's generator on the engine's device (``ransac_align``),
+        so a mesh run draws what a one-device run draws. Pairs are queued
+        one after another from this thread, so lanes on different cards run
+        one after another; every result is read after the last pair is
+        queued. The groups of L = next_pow2(max_candidates) pairs (padded
+        to a mesh multiple) that icp_tpu dispatches are counted in
+        ``stats.lc_groups``.
         """
         cfg = self.cfg
         cap = self._cap
         L = max(int(cfg.lc_max_candidates), 1)
         L = 1 << (L - 1).bit_length()
+        lanes = [self.device]
+        if self.mesh is not None:
+            L = -(-L // self.mesh.size) * self.mesh.size
+            lanes = self.mesh.devices
         self.stats.lc_groups += -(-len(pairs) // L)
         res = []
-        for src, cand in pairs:
-            sp, sm = self._to_device(*_pad_fixed(src, cap))
-            cp, cm = self._to_device(*_pad_fixed(cand, cap))
+        for k, (src, cand) in enumerate(pairs):
+            dev = lanes[k % len(lanes)]
+            sp, sm, cp, cm = (torch.as_tensor(a, device=dev) for a in (
+                *_pad_fixed(src, cap), *_pad_fixed(cand, cap)))
             R0, t0 = self._prealign(sp, sm, cp, cm)
             res.append(icp(
                 sp, sm, cp, cm, R0, t0,
@@ -1221,6 +1248,8 @@ class SlamEngine:
                 d["log_odds"], dtype=torch.float32, device=self.device)
         self.pose_graph = PoseGraph2D(self.device)
         self.pose_graph.robust_phi = float(cfg.lc_robust_phi)
+        if self.mesh is not None:
+            self.pose_graph.set_mesh(self.mesh, cfg.dist_node_threshold)
         for v in d["pg_nodes"]:
             self.pose_graph.add_node(v)
         rbs = (d["pg_rb"] if "pg_rb" in d

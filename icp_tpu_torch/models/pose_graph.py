@@ -13,7 +13,10 @@ it into power-of-two capacity buckets and solves on ``device``:
   the while-loop stops;
 * past ``_cg_node_threshold`` nodes the matrix-free block-Jacobi PCG of
   ``parallel.dist_pose_graph`` replaces the dense solve, and past
-  ``_coarse_threshold`` a coarse supernode solve initialises it.
+  ``_coarse_threshold`` a coarse supernode solve initialises it;
+* with a mesh of more than one shard (``set_mesh``), graphs from
+  ``node_threshold`` nodes up solve by the distributed Schur-complement GN,
+  or by the distributed PCG past the Schur limits.
 
 Anchor semantics are icp_tpu's and the reference's (pose_graph.py:109-114):
 the fixed node's rows and columns are zeroed and its diagonal block set to
@@ -171,8 +174,13 @@ class PoseGraph2D:
     # thresholds of the strategy choice (see optimize). 2000 comes from
     # icp_tpu, where the TPU's LU solve ran out of scoped memory past a
     # ~6k x 6k system (pow2 bucket 2048 -> 6144^2 fits, 4096 does not);
-    # it is kept until the H100's own crossover is measured
+    # it is kept until the H100's own crossover is measured. So are the
+    # distributed path's Schur limits: past _schur_dense_budget bytes of
+    # per-shard dense block (3 (i_cap + s))^2 f32, or _max_separators
+    # separators, it falls back to the distributed PCG
     _cg_node_threshold = 2000
+    _schur_dense_budget = 1 << 30
+    _max_separators = 2000
     _coarse_threshold = 5000
     # Levenberg-Marquardt retry ladder of the divergence guard: each rung
     # re-runs the solve with (H + lambda diag(H)) dx = -b
@@ -192,18 +200,19 @@ class PoseGraph2D:
         self.robust_phi = 1.0               # DCS phi (chi2 scale)
         self._min_nc = 2
         self._min_ec = 2
-        self.last_strategy = None           # "dense" | "cg" (+ guard suffix)
+        self._mesh = None                   # set_mesh: distributed solve
+        self._dist_threshold = 1024
+        # "dense" | "cg" | "schur" | "dist_cg" (+ guard suffix)
+        self.last_strategy = None
 
     def set_mesh(self, mesh, node_threshold: int = 1024):
-        raise NotImplementedError(
-            "the distributed pose-graph solve is not ported yet (ROADMAP "
-            "Queue 1: parallel/)")
-
-    def _optimize_distributed(self, n_iterations, fix_node, convergence_eps,
-                              damping=0.0):
-        raise NotImplementedError(
-            "the distributed Schur / PCG solve is not ported yet (ROADMAP "
-            "Queue 1: parallel/)")
+        """Solve graphs of ``node_threshold`` nodes and more by the exact
+        Schur-complement GN sharded over ``mesh`` (a
+        ``parallel.mesh.Mesh``) where it has more than one shard. Below it,
+        and on a one-shard mesh, the dense (or PCG) route stays: both are
+        exact GN steps."""
+        self._mesh = mesh
+        self._dist_threshold = int(node_threshold)
 
     def reserve(self, n_nodes: int, n_edges: int | None = None):
         """Pin the packed capacity buckets (they still grow past it)."""
@@ -326,6 +335,10 @@ class PoseGraph2D:
 
     def _optimize_inner(self, n_iterations, fix_node, convergence_eps,
                         damping=0.0):
+        if (self._mesh is not None and self._mesh.size > 1
+                and self.n_nodes >= self._dist_threshold):
+            return self._optimize_distributed(n_iterations, fix_node,
+                                              convergence_eps, damping)
         if self.n_nodes >= self._cg_node_threshold:
             # the dense 3n x 3n system is O(n^2) memory and O(n^3) flops;
             # matrix-free PCG is O(edges)
@@ -438,21 +451,55 @@ class PoseGraph2D:
             self._nodes[k] = out[k]
 
     def _optimize_cg(self, n_iterations, fix_node, convergence_eps,
-                     damping=0.0):
-        """Matrix-free block-Jacobi PCG Gauss-Newton on one device. Past
+                     mesh=None, damping=0.0):
+        """Matrix-free block-Jacobi PCG Gauss-Newton, on one device
+        (``mesh`` None) or sharded over ``mesh``. Past
         ``_coarse_threshold`` nodes a coarse supernode solve initialises
         the correction first (not on an LM retry, so the ladder damps the
         whole correction)."""
+        # deferred: parallel.dist_pose_graph imports this module
         from icp_tpu_torch.parallel.dist_pose_graph import optimize_cg
+        from icp_tpu_torch.parallel.mesh import Mesh
+        if mesh is None:
+            mesh = Mesh((self.device,))
         if self.n_nodes >= self._coarse_threshold and damping == 0.0:
             self._coarse_correct(int(fix_node), max(2, self.n_nodes // 1000))
-        self.last_strategy = "cg"
+        self.last_strategy = "cg" if mesh.size == 1 else "dist_cg"
         nodes, nm, ei, ej, z, om, em, rb = self._packed_device()
         out, _ = optimize_cg(
-            nodes, nm, ei, ej, z, om, em, int(fix_node),
+            mesh, nodes, nm, ei, ej, z, om, em, int(fix_node),
             n_iterations=int(n_iterations), convergence_eps=convergence_eps,
             robust_mask=rb, robust_phi=float(self.robust_phi),
             damping=float(damping))
+        self._store(out)
+
+    def _optimize_distributed(self, n_iterations, fix_node, convergence_eps,
+                              damping=0.0):
+        """Distributed GN over the mesh: partition the graph (topology only,
+        once an optimize) and run the exact Schur-complement step, one local
+        dense factorization and one psum round an iteration, unless the
+        partition is past the Schur limits (dense closure clusters make
+        every endpoint of a cross-chunk edge a separator); then the
+        matrix-free PCG over the same mesh."""
+        from icp_tpu_torch.parallel.dist_pose_graph import (
+            optimize_schur, partition_graph, schur_within_limits)
+        nodes, nm, ei, ej, z, om, em, rb = self._packed()
+        part = partition_graph(nodes.shape[0], ei, ej, z, om, em,
+                               self._mesh.size, int(fix_node), robust=rb)
+        if not schur_within_limits(
+                part, max_separators=self._max_separators,
+                cg_node_threshold=self._cg_node_threshold,
+                dense_budget=self._schur_dense_budget):
+            return self._optimize_cg(n_iterations, fix_node,
+                                     convergence_eps, mesh=self._mesh,
+                                     damping=damping)
+        self.last_strategy = "schur"
+        d0 = self._mesh.devices[0]
+        out, _ = optimize_schur(
+            self._mesh, torch.as_tensor(nodes, device=d0),
+            torch.as_tensor(nm, device=d0), part,
+            n_iterations=int(n_iterations), convergence_eps=convergence_eps,
+            robust_phi=float(self.robust_phi), damping=float(damping))
         self._store(out)
 
     # ── accessors ────────────────────────────────────────────────────────

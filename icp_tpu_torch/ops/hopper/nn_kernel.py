@@ -105,9 +105,11 @@ def nn_cuda(source, target, tgt_mask):
     from icp_tpu_torch.ops.hopper.build import load
 
     lib = load()
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = lib.icp_nn(src.data_ptr(), tgt.data_ptr(), msk.data_ptr(), n, m,
-                     d2.data_ptr(), idx.data_ptr(), stream)
+    # the runtime launches on the thread's current device, not the stream's
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.icp_nn(src.data_ptr(), tgt.data_ptr(), msk.data_ptr(), n, m,
+                         d2.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"icp_nn kernel launch failed: cudaError {err}")
     nn_launches += 1
@@ -188,9 +190,10 @@ def nn_min_cuda(rows, target, tgt_mask):
 
     lib = load()
     k, csize, sl = nn_min_geometry(n, m, _sm_count(src.device.index))
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = lib.icp_nn_min(src.data_ptr(), tgt.data_ptr(), msk.data_ptr(), n, m,
-                         k, csize, sl, out.data_ptr(), stream)
+    with torch.cuda.device(src.device):     # as in nn_cuda
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.icp_nn_min(src.data_ptr(), tgt.data_ptr(), msk.data_ptr(),
+                             n, m, k, csize, sl, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"icp_nn_min kernel launch failed: cudaError {err}")
     nn_min_launches += 1

@@ -69,9 +69,11 @@ def ransac_from_uniforms(src, dst, pair_mask, u1, u2, *, inlier_thresh=0.5):
 def ransac_align(src, dst, pair_mask, generator=None, *, n_iter: int = 1000,
                  inlier_thresh=0.5):
     """``ransac_from_uniforms`` with ``n_iter`` hypotheses whose uniforms are
-    drawn from ``generator`` (a torch.Generator on src's device; None: the
-    default one). Returns (R, t, n_inliers)."""
-    u1 = torch.rand(n_iter, generator=generator, device=src.device)
-    u2 = torch.rand(n_iter, generator=generator, device=src.device)
+    drawn from ``generator`` (None: the default one of src's device) on the
+    generator's own device, then moved to src's: a mesh lane on another
+    card draws what a one-device run draws. Returns (R, t, n_inliers)."""
+    dev = src.device if generator is None else generator.device
+    u1 = torch.rand(n_iter, generator=generator, device=dev).to(src.device)
+    u2 = torch.rand(n_iter, generator=generator, device=dev).to(src.device)
     return ransac_from_uniforms(src, dst, pair_mask, u1, u2,
                                 inlier_thresh=inlier_thresh)

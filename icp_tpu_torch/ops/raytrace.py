@@ -1,8 +1,8 @@
 """Closed-form Bresenham ray tracing + scatter-add occupancy update
 (counterpart of icp_tpu.ops.raytrace: ``bresenham_cells_xy``,
-``bresenham_cells``, ``raytrace_update``, ``raytrace_update_batched``, and
-the one-block case of icp_tpu.parallel.sharded_grid's block-sharded paint
-and replay: free space traced from a strided ray set beside all hits).
+``bresenham_cells``, ``raytrace_update``, ``raytrace_update_batched``; the
+optional ``ray_cells`` trace free space from a strided ray set beside all
+hits, as parallel.sharded_grid's block paint does on each block).
 
 Semantics as in icp_tpu and the reference (utilities/mapping.py:68-141):
 cells are emitted before stepping with the endpoint excluded; out-of-grid

@@ -1,6 +1,6 @@
-"""The scaled SLAM pipeline of BASELINE config #5 on one device (counterpart
-of icp_tpu.parallel.scaled: ``ScaledStats``, ``_mat``, ``_inv``,
-``_ortho``, ``ScaledPipeline``).
+"""The scaled SLAM pipeline of BASELINE config #5 (counterpart of
+icp_tpu.parallel.scaled: ``ScaledStats``, ``_mat``, ``_inv``, ``_ortho``,
+``ScaledPipeline``).
 
 One pipeline at the three scale axes the engine keeps apart:
 * points per scan: each 10^5-point scan registers scan-to-submap through
@@ -8,14 +8,17 @@ One pipeline at the three scale axes the engine keeps apart:
   voxel-merged ring of the last ``submap_keyframes`` keyframes, seeded at
   the constant-velocity prediction and guarded by the agreement gate;
 * map area: the occupancy grid is allocated up front (``ny`` rounded up to
-  a multiple of 64, icp_tpu's shape) and stores the UNCLAMPED log-odds sum;
-  the [lo_min, lo_max] clamp applies at read (``map_probability``), so every
-  paint is additive and ``sync_map`` can un-paint a keyframe at its old pose
-  and repaint it at the corrected one;
+  a multiple of 64, icp_tpu's shape), ROW-BLOCK-SHARDED over the mesh
+  (``blocks``, one block a shard, never replicated; ``parallel.
+  sharded_grid``) and stores the UNCLAMPED log-odds sum; the [lo_min,
+  lo_max] clamp applies at read (``map_probability``), so every paint is
+  additive and ``sync_map`` can un-paint a keyframe at its old pose and
+  repaint it at the corrected one;
 * keyframe count: loop closures are verified multi-candidate (rotation
   search, then two gated ``icp_core`` passes per candidate, accept-first in
-  distance order) and bundle-adjusted online by ``PoseGraph2D``, and the
-  map is replayed incrementally from the corrected poses.
+  distance order) and bundle-adjusted online by ``PoseGraph2D``, through
+  the distributed Schur-complement GN on a mesh of more than one shard,
+  and the map is replayed incrementally from the corrected poses.
 
 icp_tpu fuses each scan's registration into one jitted dispatch with the
 pose carried on the device. Here the same steps run as eager ops on
@@ -25,9 +28,15 @@ outputs come back by non-blocking copies that are read at the drain (every
 icp_tpu vmaps (padding unused lanes with the last candidate) run here one
 after another, the real candidates only.
 
-The device mesh is not ported (ROADMAP Queue 1): ``dist_node_threshold`` is
-accepted and unused, as in icp_tpu on one device, and ``set_mesh``,
-``time_gn_step`` and the multi-process gather raise.
+Registration stays on the mesh's first local device, as icp_tpu keeps it
+off the mesh. A device in place of the mesh means a one-shard mesh on it.
+In a multi-process run every process runs the registration and the graph
+on the same scans, holds only its own grid blocks, and gathers the blocks
+(an all-gather) for ``log_odds``, ``map_probability`` and
+``save_checkpoint``. Each step's registration and each closure check's
+verification results are process 0's (``Mesh.broadcast``, one collective
+each), so every process keeps the same trajectory and takes the same
+decisions, as icp_tpu's deterministic programs do by themselves.
 """
 from __future__ import annotations
 
@@ -41,11 +50,11 @@ from icp_tpu_torch.models.icp import icp_core, icp_large
 from icp_tpu_torch.models.pose_graph import PoseGraph2D
 from icp_tpu_torch.models.prealign import rotation_search
 from icp_tpu_torch.ops.nn import nn_query
-from icp_tpu_torch.ops.raytrace import raytrace_update, raytrace_update_batched
 from icp_tpu_torch.ops.voxel import voxel_downsample_fixed
+from icp_tpu_torch.parallel.mesh import Mesh
+from icp_tpu_torch.parallel.sharded_grid import (
+    raytrace_replay_block_sharded, raytrace_update_block_sharded)
 from icp_tpu_torch.utils.masking import pad_points
-
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1: parallel/)"
 
 
 @dataclass
@@ -66,6 +75,7 @@ class ScaledStats:
     wall_replay: float = 0.0
     wall_replay_fill: float = 0.0  # host chunk assembly inside ^
     ba_iterations: int = 0
+    partition_wall: float = 0.0    # host time in partition_graph (Schur)
 
 
 def _mat(R, t):
@@ -112,12 +122,13 @@ def _to_host(out):
 
 
 class ScaledPipeline:
-    """Streaming scaled SLAM on one device: feed sensor-frame scans through
-    ``step()``, then ``finish()`` (or ``optimize()``) before reading
-    ``trajectory``, ``kf_points`` and ``stats``. All capacities are static.
-    Runs on ``device`` (default cuda; raises without a card)."""
+    """Streaming scaled SLAM: feed sensor-frame scans through ``step()``,
+    then ``finish()`` (or ``optimize()``) before reading ``trajectory``,
+    ``kf_points`` and ``stats``. All capacities are static. ``mesh`` is a
+    ``parallel.mesh.Mesh`` of any size, or a device for a one-shard mesh
+    on it (default cuda; raises without a card)."""
 
-    def __init__(self, device="cuda", *,
+    def __init__(self, mesh="cuda", *,
                  scan_capacity: int = 131072,
                  extent: float = 100.0,
                  map_resolution: float = 0.25,
@@ -156,7 +167,10 @@ class ScaledPipeline:
                  ba_iterations: int = 10,
                  replay_chunk: int = 64,
                  dist_node_threshold: int = 2):
-        self.device = torch.device(device)
+        if not isinstance(mesh, Mesh):
+            mesh = Mesh((torch.device(mesh),))
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ScaledPipeline(device='cuda') but CUDA is not "
                                "available; pass device='cpu' explicitly")
@@ -208,16 +222,17 @@ class ScaledPipeline:
         self.min_x = self.min_y = lo
         self.resolution = float(map_resolution)
         n_cells = int(np.ceil((hi - lo) / self.resolution))
-        # rows rounded to a multiple of 64: icp_tpu's grid shape for any
-        # mesh size up to 64 devices
+        # rows rounded to a multiple of 64: the same grid shape (and so the
+        # same results) for any mesh size up to 64 shards
         self.ny = -(-n_cells // 64) * 64
+        assert self.ny % mesh.size == 0, (self.ny, mesh.size)
         self.nx = n_cells
         self.l_hit = float(np.log(p_hit / (1.0 - p_hit)))
         self.l_miss = float(np.log(p_miss / (1.0 - p_miss)))
         self.lo_min, self.lo_max = float(log_odds_min), float(log_odds_max)
         self.max_steps = int(np.ceil(
             1.2 * self.max_range / self.resolution / 64.0)) * 64
-        self.log_odds = self._zeros_grid()
+        self.blocks = self._zero_blocks()
 
         # ── rolling submap ring (device-resident, world frame) ───────────
         self._register = self.submap_kf > 0      # submap mode on
@@ -236,8 +251,8 @@ class ScaledPipeline:
         self._pending: list = []                   # in-flight step outputs
         self._pending_event = None
 
-        self.pose_graph = PoseGraph2D(self.device)
-        self.pose_graph.robust_phi = float(lc_robust_phi)
+        self._dist_threshold = int(dist_node_threshold)
+        self.pose_graph = self._new_graph(float(lc_robust_phi))
         self.global_pose = np.eye(3, dtype=np.float32)
         self.trajectory: list[np.ndarray] = []
         self.kf_points: list[np.ndarray] = []   # downsampled, sensor frame
@@ -253,32 +268,43 @@ class ScaledPipeline:
         self._accepts_since_ba = 0
         self._map_dirty = False
         self._painted_T: list[np.ndarray] = []   # pose each kf was painted at
+        self.gn_step_strategy = None             # set by time_gn_step
         self.stats = ScaledStats()
 
-    # ── mesh-only entry points ───────────────────────────────────────────
-    def set_mesh(self, mesh, node_threshold: int = 2):
-        raise NotImplementedError(f"the device mesh is {_NOT_PORTED}")
+    # ── the row-block-sharded grid ───────────────────────────────────────
+    @property
+    def log_odds(self) -> torch.Tensor:
+        """The whole (ny, nx) grid on the first local device: the block
+        itself on a one-shard mesh, else the blocks gathered (across
+        processes too)."""
+        if self.mesh.size == 1:
+            return self.blocks[0]
+        return self.mesh.all_gather(self.blocks)
 
-    def time_gn_step(self, reps: int = 5) -> float:
-        raise NotImplementedError(
-            f"time_gn_step times the distributed Schur / PCG step, which is "
-            f"{_NOT_PORTED}")
+    @log_odds.setter
+    def log_odds(self, grid: torch.Tensor):
+        self.blocks = self.mesh.split(grid)
 
-    def _host_log_odds(self) -> np.ndarray:
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                f"the multi-process grid gather is {_NOT_PORTED}")
-        return self.log_odds.cpu().numpy()
+    def _zero_blocks(self):
+        rows = self.ny // self.mesh.size
+        return [torch.zeros((rows, self.nx), dtype=torch.float32, device=d)
+                for d in self.mesh.devices]
+
+    def _new_graph(self, robust_phi: float) -> PoseGraph2D:
+        pg = PoseGraph2D(self.device)
+        pg.robust_phi = robust_phi
+        if self.mesh.size > 1:
+            pg.set_mesh(self.mesh, self._dist_threshold)
+        return pg
+
+    def _sync_devices(self):
+        for d in dict.fromkeys(self.mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     # ── helpers ──────────────────────────────────────────────────────────
     def _t(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
-
-    def _zeros_grid(self):
-        return torch.zeros((self.ny, self.nx), dtype=torch.float32,
-                           device=self.device)
 
     def _set_dev_carry(self, T, inc):
         self._dev_pR = self._t(T[:2, :2])
@@ -355,24 +381,25 @@ class ScaledPipeline:
             * (1.0 / self.resolution)).to(torch.int64)
 
     def _paint(self, pts, mask, R, t):
-        """Paint one voxelized keyframe at pose (R, t), in place: hits from
-        every point, free space along every ``map_ray_stride``-th ray, into
-        the unclamped grid."""
+        """Paint one voxelized keyframe at pose (R, t) into the blocks, in
+        place: hits from every point, free space along every
+        ``map_ray_stride``-th ray, into the unclamped grid."""
         hit_cells = self._cells(pts @ R.T + t)
         s = self.map_ray_stride
-        raytrace_update(self.log_odds, self._cells(t), hit_cells, mask,
-                        self.l_hit, self.l_miss, -np.inf, np.inf,
-                        max_steps=self.max_steps, ray_cells=hit_cells[::s],
-                        ray_valid=mask[::s])
+        raytrace_update_block_sharded(
+            self.mesh, self.blocks, self._cells(t), hit_cells, mask,
+            self.l_hit, self.l_miss, -np.inf, np.inf,
+            max_steps=self.max_steps, ray_cells=hit_cells[::s],
+            ray_valid=mask[::s])
 
     def _replay(self, kf_pts, kf_mask, Rs, ts, sign: float):
         """Paint (sign +1) or un-paint (sign -1) a chunk of keyframes at the
-        given poses in one batched update of the unclamped grid."""
+        given poses in one batched update of the unclamped blocks."""
         world = torch.einsum("bij,bnj->bni", Rs, kf_pts) + ts[:, None, :]
         hit_cells = self._cells(world)
         s = self.map_ray_stride
-        raytrace_update_batched(
-            self.log_odds, self._cells(ts), hit_cells, kf_mask,
+        raytrace_replay_block_sharded(
+            self.mesh, self.blocks, self._cells(ts), hit_cells, kf_mask,
             sign * self.l_hit, sign * self.l_miss, -np.inf, np.inf,
             max_steps=self.max_steps, ray_cells=hit_cells[:, ::s],
             ray_valid=kf_mask[:, ::s])
@@ -418,14 +445,16 @@ class ScaledPipeline:
               & (d_pos <= self.gate_dist) & (d_yaw <= self.gate_yaw))
         Rn = _snap(torch.where(ok, res.R, Rp))
         tn = torch.where(ok, res.t, tp)
+        kf_p, kf_m = voxel_downsample_fixed(sp, sm, self.kf_voxel,
+                                            self.kf_cap)
+        out = self.mesh.broadcast(
+            (Rn, tn, res.error, res.iters, ok, res.dropped, kf_p, kf_m))
+        Rn, tn, kf_p, kf_m = out[0], out[1], out[6], out[7]
         self._dev_iR = _snap(pR.T @ Rn)             # relative increment
         self._dev_it = pR.T @ (tn - pt)
         self._dev_pR, self._dev_pt = Rn, tn
-
-        kf_p, kf_m = voxel_downsample_fixed(sp, sm, self.kf_voxel,
-                                            self.kf_cap)
         self._ring_push(kf_p, kf_m, Rn, tn, slot)
-        return (Rn, tn, res.error, res.iters, ok, res.dropped, kf_p, kf_m)
+        return tuple(out)
 
     # ── per-scan step ────────────────────────────────────────────────────
     def step(self, points: np.ndarray):
@@ -554,10 +583,12 @@ class ScaledPipeline:
         inc_init = _inv(self._prev_inc)
         res = icp_large(pp, pm, sp, sm, self._t(inc_init[:2, :2]),
                         self._t(inc_init[:2, 2]), **self._icp_kw)
-        err = float(res.error)
-        self.stats.icp_iters += int(res.iters)
-        self.stats.reg_dropped_points += int(res.dropped)
-        T_inc = _mat(res.R.cpu().numpy(), res.t.cpu().numpy())
+        R, t, err, iters, dropped = self.mesh.broadcast(
+            (res.R, res.t, res.error, res.iters, res.dropped))
+        err = float(err)
+        self.stats.icp_iters += int(iters)
+        self.stats.reg_dropped_points += int(dropped)
+        T_inc = _mat(R.cpu().numpy(), t.cpu().numpy())
         pose_new = (self.global_pose @ _inv(T_inc)).astype(np.float32)
         self.stats.wall_registration += time.perf_counter() - t0
 
@@ -628,7 +659,8 @@ class ScaledPipeline:
             res, ierr, frac = self._lc_verify(ap, am, bp, bm)
             lanes.append(torch.cat([res.R.reshape(-1), res.t, ierr[None],
                                     frac[None], res.iters[None].float()]))
-        lanes = torch.stack(lanes).cpu().numpy()      # one read for all
+        lanes, = self.mesh.broadcast([torch.stack(lanes)])
+        lanes = lanes.cpu().numpy()                   # one read for all
         self.stats.icp_iters += int(lanes[:, 8].sum())
 
         # accept-first in candidate (distance) order (reference
@@ -688,11 +720,11 @@ class ScaledPipeline:
         self.sync_map()
 
     def warm_replay(self):
-        """Run one replay chunk on a throwaway grid, so the first sync_map
+        """Run one replay chunk on throwaway blocks, so the first sync_map
         after BA does not pay the allocator's first growth to that size."""
         C = self.replay_chunk
-        grid = self.log_odds
-        self.log_odds = self._zeros_grid()
+        blocks = self.blocks
+        self.blocks = self._zero_blocks()
         eye = torch.eye(2, dtype=torch.float32, device=self.device)
         self._replay(
             torch.zeros((C, self.kf_cap, 2), dtype=torch.float32,
@@ -701,9 +733,8 @@ class ScaledPipeline:
                         device=self.device),
             eye.expand(C, 2, 2),
             torch.zeros((C, 2), dtype=torch.float32, device=self.device), 1.0)
-        self.log_odds = grid
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.blocks = blocks
+        self._sync_devices()
 
     def _replay_set(self, idxs, poses, sign: float):
         """Paint (sign=+1) or un-paint (sign=-1) the given keyframes at
@@ -757,7 +788,7 @@ class ScaledPipeline:
         else:
             moved = np.zeros(0, np.int64)
         if len(moved) > 0.5 * K:
-            self.log_odds = self._zeros_grid()
+            self.blocks = self._zero_blocks()
             self._replay_set(list(range(K)), self.trajectory, +1.0)
             self._painted_T = [self.trajectory[k].copy() for k in range(K)]
         elif len(moved):
@@ -766,12 +797,53 @@ class ScaledPipeline:
             self._replay_set(mv, self.trajectory, +1.0)
             for k in mv:
                 self._painted_T[k] = self.trajectory[k].copy()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)   # honest timing
+        self._sync_devices()                      # honest timing
         self.stats.wall_replay += time.perf_counter() - t0
         self.stats.replayed_keyframes += (
             K if len(moved) > 0.5 * K else int(len(moved)))
         self._map_dirty = False
+
+    def time_gn_step(self, reps: int = 5) -> float:
+        """Seconds a GN step on the current graph takes, the first call
+        excluded, by the strategy ``PoseGraph2D.optimize`` would take on
+        the mesh (``schur_within_limits``): the Schur step, else the PCG
+        step (``gn_step_strategy`` says which). The host's partition time
+        goes into ``stats.partition_wall``."""
+        from icp_tpu_torch.parallel.dist_pose_graph import (
+            _pad_edges, gn_step_cg_sharded, gn_step_schur_sharded,
+            partition_graph, schur_within_limits)
+        self.finish()
+        pg = self.pose_graph
+        nodes, node_mask, ei, ej, z, om, em, rb = pg._packed()
+        t0 = time.perf_counter()
+        part = partition_graph(nodes.shape[0], ei, ej, z, om, em,
+                               self.mesh.size, 0, robust=rb)
+        self.stats.partition_wall = time.perf_counter() - t0
+        nd, nm = self._t(nodes), self._t(node_mask)
+        rphi = float(pg.robust_phi)
+        if not schur_within_limits(
+                part, max_separators=pg._max_separators,
+                cg_node_threshold=pg._cg_node_threshold,
+                dense_budget=pg._schur_dense_budget):
+            self.gn_step_strategy = "cg"
+            ei_, ej_, z_, om_, em_, rb_ = _pad_edges(
+                self.mesh, *pg._packed_device()[2:])
+
+            def fn():
+                return gn_step_cg_sharded(self.mesh, nd, nm, ei_, ej_, z_,
+                                          om_, em_, 0, rb_, rphi,
+                                          cg_iters=100)
+        else:
+            self.gn_step_strategy = "schur"
+
+            def fn():
+                return gn_step_schur_sharded(self.mesh, nd, nm, part, rphi)
+        fn().cpu()                           # first call, synchronized
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        out.cpu()
+        return (time.perf_counter() - t0) / reps
 
     # ── checkpoint / resume (icp_tpu's npz keys) ─────────────────────────
     def save_checkpoint(self, path: str):
@@ -799,7 +871,7 @@ class ScaledPipeline:
             kf_flat=flat,
             travel=self._trav[:self._n_kf].copy(),
             prev_inc=prev_inc,
-            log_odds=self._host_log_odds(),
+            log_odds=self.log_odds.cpu().numpy(),
             map_dirty=np.array([self._map_dirty]),
             painted_T=(np.stack(self._painted_T) if self._painted_T
                        else np.zeros((0, 3, 3), np.float32)),
@@ -851,9 +923,7 @@ class ScaledPipeline:
             # paint provenance unknown: sync_map rebuilds the grid
             self._painted_T = []
             self._map_dirty = True
-        rphi = self.pose_graph.robust_phi
-        self.pose_graph = PoseGraph2D(self.device)
-        self.pose_graph.robust_phi = rphi
+        self.pose_graph = self._new_graph(self.pose_graph.robust_phi)
         for T in self.trajectory:
             self.pose_graph.add_node(np.array(
                 [T[0, 2], T[1, 2], np.arctan2(T[1, 0], T[0, 0])],
@@ -896,5 +966,5 @@ class ScaledPipeline:
         post-BA corrections; the clamp to [lo_min, lo_max] applies here."""
         self.finish()
         self.sync_map()
-        lo = np.clip(self._host_log_odds(), self.lo_min, self.lo_max)
+        lo = np.clip(self.log_odds.cpu().numpy(), self.lo_min, self.lo_max)
         return 1.0 - 1.0 / (1.0 + np.exp(lo))

@@ -165,8 +165,9 @@ class SlamConfig:
     # legacy capacity-derived defaults.
     sweep_src_capacity: int | str | None = "auto"
     sweep_tgt_capacity: int | str | None = "auto"
-    # distributed execution (icp_tpu's device mesh). The port runs on one
-    # device: "auto" and False are single-device, True is not ported yet
+    # distributed execution (icp_tpu's device mesh, parallel/mesh.py): True
+    # needs more than one visible device of the engine's kind, "auto"
+    # builds a mesh wherever more than one is visible, False never does
     distributed: bool | str = "auto"
     # node count at which PoseGraph2D.optimize switches from the
     # single-device dense solve to the distributed Schur-complement solve

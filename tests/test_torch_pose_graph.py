@@ -286,7 +286,8 @@ def test_coarse_correct_through_optimize_matches():
 
 def test_graph_accessors_and_guards():
     """get_poses_as_matrices, packing buckets after reserve(), the no-op
-    cases, vec/pose round trips, and set_mesh refusing (not ported)."""
+    cases, vec/pose round trips, and set_mesh with a one-shard mesh keeping
+    the dense route."""
     gj, gt = J.PoseGraph2D(), T.PoseGraph2D("cpu")
     for g in (gj, gt):
         g.optimize()                               # empty: no-op
@@ -303,5 +304,9 @@ def test_graph_accessors_and_guards():
     np.testing.assert_allclose(
         tse2.vec_to_pose_np(np.array([1.0, -2.0, 3.0]), np.float32),
         tse2.vec_to_pose(v[0]).numpy(), atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        gt.set_mesh(None)
+    from icp_tpu_torch.parallel.mesh import Mesh
+    gt.add_node([1.5, 2.0, 0.4])
+    gt.add_edge(0, 1, [0.5, 0.0, -0.1])
+    gt.set_mesh(Mesh(("cpu",)), node_threshold=2)
+    gt.optimize()
+    assert gt.last_strategy == "dense"

@@ -309,13 +309,6 @@ def test_scaled_cli_mode_cpu(tmp_path):
     assert int(np.load(ck)["stats"][0]) == 30
 
 
-def test_mesh_entry_points_raise():
-    pipe = _torch_pipe()
-    for call in (lambda: pipe.set_mesh(None), lambda: pipe.time_gn_step()):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            call()
-
-
 def test_default_device_is_cuda(tmp_path):
     """Without --device (or device=) the pipeline runs on cuda, and raises
     where there is no card rather than falling back."""

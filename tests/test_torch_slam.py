@@ -1,6 +1,7 @@
 """The main path as a whole: icp_tpu_torch's fused SLAM step and engine
 against icp_tpu's on the dryrun sequence (JAX on the CPU), plus the
-package's import hygiene, its guard for what is not ported yet, and its
+package's import hygiene, its guards (a mesh needs more than one
+device, a card needs CUDA), and its
 CLI (loop closure and checkpoints included). The features path (no IMU,
 "features" and "both") and the modular path (``tpu.fused: false``) are
 held to icp_tpu's with icp_tpu's RANSAC uniforms injected
@@ -193,6 +194,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(icp_tpu_torch.__path__, 'icp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('icp_tpu_torch.parallel', 'icp_tpu_torch.parallel.dist_pose_graph',\n"
+        "          'icp_tpu_torch.parallel.mesh', 'icp_tpu_torch.parallel.sweep_shard',\n"
+        "          'icp_tpu_torch.parallel.sharded_grid',\n"
         "          'icp_tpu_torch.models.pose_graph', 'icp_tpu_torch.models.features',\n"
         "          'icp_tpu_torch.ops.ransac'):\n"
         "    assert m in sys.modules, m\n"
@@ -211,8 +214,9 @@ def test_port_imports_no_jax():
 
 
 def test_engine_refuses_what_is_not_ported(dryrun):
-    """Only a mesh (distributed: true) raises NotImplementedError, and
-    device='cuda' without CUDA raises RuntimeError. The non-fused path, and
+    """distributed: true on one visible device raises RuntimeError (as
+    icp_tpu's does), and device='cuda' without CUDA raises RuntimeError.
+    The non-fused path, and
     features/both alignment with loop closure on or off and with IMU or
     without, construct; so does the fused step with the features
     prealign."""
@@ -222,7 +226,7 @@ def test_engine_refuses_what_is_not_ported(dryrun):
 
     d = copy.deepcopy(DRYRUN_CFG)
     d["tpu"]["distributed"] = True
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="distributed"):
         TEngine(TConfig.from_dict(d), imu=TIMU(dryrun[3]), device="cpu")
     for changes in ([("tpu", "fused", False)],
                     [("loop_closure", "enabled", True)],
