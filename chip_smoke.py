@@ -9,7 +9,12 @@ Phases (any failed check ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from icp_tpu_torch/csrc with nvcc;
   3. hold each kernel against its plain torch version on the card, bit for
-     bit: nn_cuda at the main path's shapes plus ragged and tie cases,
+     bit: icp_segment_add (ordered_index_add_) against CPU index_add_ at
+     the adds the paths make (the submap merge's 30,720 rows into 4,096
+     slots, a scan's 768, config #5's 131,072-row keyframe, a 1,024-node
+     graph's H, b and per-node blocks, f32 and f64) and its edges (no
+     rows, one run, an unsorted index into a non-zero out), one launch a
+     call; nn_cuda at the main path's shapes plus ragged and tie cases,
      nn_min_cuda at the six sweep shapes (the IMU main path's, the no-IMU
      path's and loop-closure verification's coarse and fine passes) and
      its edge cases (M = 0, all masked, R = 1, M odd, an unaligned target,
@@ -20,17 +25,22 @@ Phases (any failed check ends the run with a non-zero exit code):
      SlamEngine (first scan, then batches of 16, finish, sync_map) with
      the kernels' launch counters reset just before; check both counters
      are > 0, the poses and map are finite, and ATE <= 0.050 m;
-  5. time a second, warm pass (scans/s) and each kernel against its plain
-     version at the paths' shapes (nn_cuda at scan x scan and scan x
+  5. time a second, warm pass (scans/s) and check it repeats the first bit
+     for bit (trajectory and log-odds map); time each kernel against its
+     plain version at the paths' shapes (nn_cuda at scan x scan and scan x
      submap capacity, nn_min_cuda at the six sweep shapes), by CUDA events
      around back-to-back calls and by CUDA-graph replays (device time
-     only), each shape beside its bound (6 flops a pair at the H100's
-     67 TFLOP/s float32 peak, or its bytes at 3.35 TB/s if more);
+     only), each shape beside its bound (7 or 6 FP32 instructions a pair
+     at the H100's 33.5 T a second, the 67 TFLOP/s peak without FMA, or
+     its bytes at 3.35 TB/s if more); and icp_segment_add against CUDA
+     index_add_ and CPU index_add_ (its plain version) at phase 3's path
+     shapes, beside each one's bytes at 3.35 TB/s;
   6. drive the loop-closure path: the same sequence with bench_suite's
      loop-closure section (first scan, warmup, batches of 16 with rollback
      at accepted closures, finish, sync_map), counters reset just before;
      check >= 1 closure, ATE <= 0.030 m and below phase 4's, finite poses
-     and map, and more nn_min_cuda launches than phase 4;
+     and map, and more nn_min_cuda launches than phase 4; then run it again
+     and check the two runs bit-equal (trajectory, map, closures);
   7. time PoseGraph2D.optimize through the dense and the PCG solve at
      1024 and 4096 nodes (printed only);
   8. drive the features path: the sequence without IMU and with
@@ -59,8 +69,11 @@ Phases (any failed check ends the run with a non-zero exit code):
      closure, >= 1 BA run, both counters > 0, finite poses and map, the map
      clean after optimize(15), and ATE <= 0.15 m after it; print scans/s,
      ATE while streaming, the stats, the wall split, kernel launches per
-     loop-closure check and peak device memory; then time the parts of
-     12 scaled scans (each step, icp_large and compact_nn synchronized).
+     loop-closure check and peak device memory; then run it again to the
+     scan of its first bundle adjustment (the first closure's) and check
+     the trajectory and map there bit-equal to the first run's; then time
+     the parts of 12 scaled scans (each step, icp_large and compact_nn
+     synchronized).
  13. the file-driven path: the bench sequence's CSVs and a YAML of bench.py's
      configuration with display.live_map on (snapshot_every 50) through
      icp_tpu_torch.cli.main with --map-png, --profile, --save-traj, all
@@ -123,6 +136,13 @@ LC_ATE_BOUND_M = 0.030    # icp_tpu scores 0.0186 m with loop closure
 # an H100 SXM's published peaks: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 FLOPS_PER_PAIR = 6        # 2 subtracts, 2 multiplies, 1 add, 1 min
+# FP32 instructions a second at the issue rate: the 67 TFLOP/s counts an
+# FMA as two flops. The kernels round every operation on its own to stay
+# bit-equal to torch, so none fuses: each operation is one instruction.
+PEAK_F32_INSTR_S = PEAK_F32_FLOPS / 2
+# a (row, target) pair: 2 subtracts, 2 multiplies, 1 add, then nn_min_cuda's
+# min, or nn_cuda's argmin compare and select
+INSTR_PER_PAIR = {"nn": 7, "nn_min": 6}
 
 # bench.py's configuration (BASELINE config #3: IMU + submap, no loop closure)
 BENCH_CFG = {
@@ -468,13 +488,186 @@ def check_kernels(dev, sweep_shapes) -> dict:
     return err
 
 
+def reset_counts():
+    """Every kernel wrapper's launch counter to 0."""
+    from icp_tpu_torch.ops import scatter as SC
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+
+    K.reset_launch_counts()
+    SC.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """{kernel key: launches since reset_counts()}."""
+    from icp_tpu_torch.ops import scatter as SC
+    from icp_tpu_torch.ops.hopper import nn_kernel as K
+
+    return {"nn": K.nn_launches, "nn_min": K.nn_min_launches,
+            "segment_add": SC.segment_add_launches}
+
+
+def all_launched(counts) -> bool:
+    return all(v > 0 for v in counts.values())
+
+
+def recorded_adds(fn, *modules):
+    """Run fn() with every ordered_index_add_ call that ``modules`` make
+    recorded: [(out before the add, index, src, sorted_index)]."""
+    from icp_tpu_torch.ops import scatter as SC
+
+    calls, real = [], SC.ordered_index_add_
+
+    def rec(out, index, src, *, sorted_index=False):
+        calls.append((out.clone(), index.clone(), src.clone(), sorted_index))
+        return real(out, index, src, sorted_index=sorted_index)
+
+    for m in modules:
+        m.ordered_index_add_ = rec
+    try:
+        fn()
+    finally:
+        for m in modules:
+            m.ordered_index_add_ = real
+    return calls
+
+
+def segment_cases(scans, gt):
+    """(path cases, edge cases), each a list of (label, out, index, src,
+    sorted_index) on the CPU for icp_segment_add. The path cases are the
+    adds the paths make, recorded from the functions that make them on the
+    CPU: the main path's 40-scan submap merge and a scan's voxels, config
+    #5's 100k-point keyframe into 8,192 slots, a 1,024-node graph's dense
+    H and b (f32 and f64) and the PCG step's per-node blocks. The edges:
+    no rows, one run holding every row, an unsorted index into a non-zero
+    out."""
+    from icp_tpu_torch.models import pose_graph as PG
+    from icp_tpu_torch.models.pose_graph import PoseGraph2D, optimize_dense
+    from icp_tpu_torch.ops import voxel as V
+    from icp_tpu_torch.parallel import dist_pose_graph as DP
+    from icp_tpu_torch.utils.masking import pad_points
+
+    cases = []
+    ring = []
+    for k in range(40):                     # scans placed at their true poses
+        c, s_ = np.cos(gt[k, 2]), np.sin(gt[k, 2])
+        ring.append(pad_points(scans[k] @ np.array([[c, s_], [-s_, c]])
+                               + gt[k, :2], 768))
+    rp = torch.as_tensor(np.concatenate([p for p, _ in ring]))
+    rm = torch.as_tensor(np.concatenate([m for _, m in ring]))
+    (c0,) = recorded_adds(lambda: V.voxel_downsample_fixed(rp, rm, 0.05, 4096), V)
+    cases.append(("submap merge 30720 -> 4096", *c0))
+    (c1,) = recorded_adds(lambda: V.voxel_downsample(rp[:768], rm[:768], 0.04), V)
+    cases.append(("scan voxels 768", *c1))
+    scan, _ = next(make_scaled("cpu")[1])      # phase 12's first scan
+    kp, km = (torch.as_tensor(a) for a in pad_points(scan, 131072))
+    (c2,) = recorded_adds(lambda: V.voxel_downsample_fixed(kp, km, 0.3, KF_CAP), V)
+    cases.append(("keyframe 131072 -> 8192", *c2))
+    pg = _chain_with_closures(PoseGraph2D("cpu"), 1024, every=16)
+    g = pg._packed_device()
+    H, b = recorded_adds(lambda: optimize_dense(*g[:7], 0, n_iterations=1,
+                                                convergence_eps=0.0), PG)
+    cases += [("graph H 1024 nodes (width 1)", *H), ("graph b (width 1)", *b)]
+    g64 = [x.double() if x.is_floating_point() else x for x in g]
+    H64, _ = recorded_adds(lambda: optimize_dense(*g64[:7], 0, n_iterations=1,
+                                                  convergence_eps=0.0), PG)
+    cases.append(("graph H f64 (width 1)", *H64))
+    cg = recorded_adds(lambda: DP.gn_step_cg(*g[:7], 0, cg_iters=1), DP)
+    cases += [("PCG b (width 3)", *cg[0]), ("PCG blocks (width 9)", *cg[1])]
+    rng = np.random.default_rng(9)
+    edges = [
+        ("no rows", torch.zeros((16, 3)), torch.zeros(0, dtype=torch.int64),
+         torch.zeros((0, 3)), False),
+        ("one run, every row", torch.as_tensor(rng.normal(size=(16, 3)).astype(np.float32)),
+         torch.full((30720,), 7, dtype=torch.int64),
+         torch.as_tensor(rng.normal(size=(30720, 3)).astype(np.float32)), True),
+        ("unsorted into non-zero out",
+         torch.as_tensor(rng.normal(size=(4096, 3)).astype(np.float32)),
+         torch.as_tensor(rng.integers(0, 4096, 30720)),
+         torch.as_tensor((rng.normal(size=(30720, 3))
+                          * 10.0 ** rng.uniform(-3, 3, (30720, 3))).astype(np.float32)),
+         False)]
+    return cases, edges
+
+
+def check_segment_add(dev, cases) -> float:
+    """Phase 3: icp_segment_add against CPU index_add_ on each case, bit
+    for bit, one launch a call (none without rows). Returns the max
+    absolute error (0.0)."""
+    from icp_tpu_torch.ops import scatter as SC
+
+    err = 0.0
+    for label, out, index, src, srt in cases:
+        want = out.clone().index_add_(0, index, src)
+        before = SC.segment_add_launches
+        got = SC.ordered_index_add_(out.to(dev), index.to(dev), src.to(dev),
+                                    sorted_index=srt)
+        torch.cuda.synchronize()
+        assert SC.segment_add_launches == before + (index.numel() > 0), label
+        assert torch.equal(got.cpu(), want), \
+            f"icp_segment_add not bit-equal to CPU index_add_: {label}"
+        err = max(err, float((got.cpu() - want).abs().max()) if want.numel() else 0.0)
+        log(f"  icp_segment_add {label}: {index.numel()} rows x "
+            f"{src[0].numel() if len(src) else src.shape[-1]} into "
+            f"{out.shape[0]} slots, {out.dtype}, "
+            f"{'sorted' if srt else 'unsorted'}: bit-equal to CPU index_add_")
+    return err
+
+
+def segment_bound(out, index, src):
+    """(bound_ms, "bytes") of one ordered scatter-sum on this data: each
+    index and source value read once, each touched slot read and written
+    once, at PEAK_BYTES_S (one add a source value: never the bound)."""
+    width = src[0].numel()
+    touched = int(torch.unique(index).numel())
+    b = (index.numel() * 8 + src.numel() * src.element_size()
+         + 2 * touched * width * out.element_size())
+    return 1e3 * b / PEAK_BYTES_S, "bytes"
+
+
+def time_segment_add(dev, cases, card) -> dict:
+    """Phase 5: icp_segment_add (through ordered_index_add_, as the paths
+    call it: the sort included where the index is unsorted) against CUDA
+    index_add_ (the library call: same sums, in no fixed order) at the
+    recorded shapes, by CUDA events and CUDA-graph replays, in turns; the
+    plain version (CPU index_add_) by the host clock; each beside its
+    bytes bound."""
+    from icp_tpu_torch.ops import scatter as SC
+
+    timings = {}
+    for label, out, index, src, srt in cases:
+        o, i, s = out.to(dev), index.to(dev), src.to(dev)
+        kern = lambda: SC.ordered_index_add_(o, i, s, sorted_index=srt)  # noqa: E731
+        lib = lambda: o.index_add_(0, i, s)  # noqa: E731
+        bound_ms, bound_by = segment_bound(out, index, src)
+        fig = {"bound_ms": bound_ms, "bound_by": bound_by,
+               "rows": index.numel(), "slots": out.shape[0],
+               "width": src[0].numel(), "dtype": str(out.dtype).split(".")[-1]}
+        for measure, timer in (("", time_ms), ("device_", graph_ms)):
+            l1, k1, k2, l2 = timer(lib), timer(kern), timer(kern), timer(lib)
+            fig[f"{measure}ms"] = (k1 + k2) / 2
+            fig[f"library_{measure}ms"] = (l1 + l2) / 2
+        oc = out.clone()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            oc.index_add_(0, index, src)
+        fig["plain_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+        fig["bound_share"] = bound_ms / fig["device_ms"]
+        log(f"icp_segment_add {label}: kernel {1e3 * fig['ms']:.2f} us (events) / "
+            f"{1e3 * fig['device_ms']:.2f} us (device only), CUDA index_add_ "
+            f"{1e3 * fig['library_ms']:.2f} / {1e3 * fig['library_device_ms']:.2f} us, "
+            f"plain (CPU index_add_, host clock) {1e3 * fig['plain_ms']:.1f} us; "
+            f"bound {1e3 * bound_ms:.3f} us ({bound_by}), device time "
+            f"{100 * fig['bound_share']:.1f} % of it, on {card}")
+        timings[label] = fig
+    return timings
+
+
 def kernel_bound(key, n, m):
     """(bound_ms, bound_by) of one call at n rows x m targets: the larger of
-    FLOPS_PER_PAIR flops a pair at PEAK_F32_FLOPS (nn_cuda's argmin compare
-    and select not counted) and its bytes (inputs read once, outputs
-    written once) at PEAK_BYTES_S."""
+    INSTR_PER_PAIR FP32 instructions a pair at PEAK_F32_INSTR_S and its
+    bytes (inputs read once, outputs written once) at PEAK_BYTES_S."""
     out_bytes = 8 if key == "nn" else 4
-    ops_ms = 1e3 * FLOPS_PER_PAIR * n * m / PEAK_F32_FLOPS
+    ops_ms = 1e3 * INSTR_PER_PAIR[key] * n * m / PEAK_F32_INSTR_S
     bytes_ms = 1e3 * (8 * n + 9 * m + out_bytes * n) / PEAK_BYTES_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -662,7 +855,6 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
     modular path. Returns the kernels' launch counts per path."""
     from icp_tpu_torch.engine import _pad_fixed
     from icp_tpu_torch.models.features import extract_features
-    from icp_tpu_torch.ops.hopper import nn_kernel as K
 
     n_steps = len(scans) - 1
     launches = {}
@@ -673,12 +865,12 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
     # (scans bookkept, submap corrections) after each batch: phase 10
     # reads the corrections over its first MODULAR_SCANS scans
     progress = []
-    K.reset_launch_counts()
+    reset_counts()
     eng_f, wall_f = run_engine(
         feat_cfg, None, scans, rels, dev,
         probe=lambda e: progress.append((e.stats.scans,
                                          e.stats.submap_corrections)))
-    launches["features"] = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches["features"] = read_counts()
     traj_f = np.stack(eng_f.pose_trajectory)
     lo_f = eng_f.mapper.log_odds
     ate_f = ate(traj_f[:, :2, 2], gt, indices=eng_f.pose_scan_indices)
@@ -692,7 +884,7 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
         f"{eng_f.stats.sweep_dropped_voxels}; on {card}")
     log(f"features ATE {ate_f:.4f} m over {len(traj_f)} poses (bound "
         f"{FEAT_ATE_BOUND_M} m; IMU path {ate_m:.4f} m)")
-    assert lf["nn"] > 0 and lf["nn_min"] > 0, lf
+    assert all_launched(lf), lf
     assert np.isfinite(traj_f).all(), "non-finite pose (features)"
     assert len(traj_f) >= MIN_POSES, f"only {len(traj_f)} poses (features)"
     assert bool(torch.isfinite(lo_f).all()), "non-finite map (features)"
@@ -717,9 +909,9 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
         BENCH_CFG, loop_closure=LC_SECTION,
         features=dict(FEAT_SECTION, method="both")))
     both_cfg.num_scans = len(scans)
-    K.reset_launch_counts()
+    reset_counts()
     eng_b, wall_b = run_engine(both_cfg, imu, scans, rels, dev, warmup=True)
-    launches["lc_both"] = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches["lc_both"] = read_counts()
     s = eng_b.stats
     traj_b = np.stack(eng_b.pose_trajectory)
     ate_b = ate(traj_b[:, :2, 2], gt, indices=eng_b.pose_scan_indices)
@@ -736,15 +928,16 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
     assert np.isfinite(traj_b).all(), "non-finite pose ('both')"
     assert ate_b <= LC_ATE_BOUND_M, f"'both' ATE {ate_b:.4f} m > {LC_ATE_BOUND_M} m"
     assert ate_b < ate_m, f"'both' ATE {ate_b:.4f} m >= no-LC ATE {ate_m:.4f} m"
-    assert launches["lc_both"]["nn"] > 0, launches["lc_both"]
+    assert launches["lc_both"]["nn"] > 0 and launches["lc_both"]["segment_add"] > 0, \
+        launches["lc_both"]
 
     # ── 10. the modular path (tpu.fused: false), features, cut depth ─────
     mod_cfg = SlamConfig.from_dict(dict(
         feat_dict, tpu=dict(BENCH_CFG["tpu"], fused=False)))
     n_mod = MODULAR_SCANS + 1
-    K.reset_launch_counts()
+    reset_counts()
     eng_m, wall_m = run_engine(mod_cfg, None, scans[:n_mod], rels[:n_mod], dev)
-    launches["modular"] = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches["modular"] = read_counts()
     traj_m = np.stack(eng_m.pose_trajectory)
     gap = float(np.abs(traj_m[:10, :2, 2] - traj_f[:10, :2, 2]).max())
     sub_f = dict(progress).get(MODULAR_SCANS)
@@ -755,8 +948,7 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
         f"fused| over the first 10 poses {gap:.4g} m; launches "
         f"{launches['modular']}")
     assert eng_m._state is None, "the modular run built a fused state"
-    assert launches["modular"]["nn"] > 0 and launches["modular"]["nn_min"] > 0, \
-        launches["modular"]
+    assert all_launched(launches["modular"]), launches["modular"]
     assert np.isfinite(traj_m).all(), "non-finite pose (modular)"
     assert gap <= 0.01, f"modular vs fused positions {gap:.4g} m > 0.01 m"
     assert sub_f is not None and abs(eng_m.stats.submap_corrections - sub_f) <= 1, \
@@ -934,8 +1126,10 @@ def make_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000):
     return pipe, stream
 
 
-def run_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000):
+def run_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000, probe=None,
+               stop=None):
     """Drive the scaled pipeline over the stream as bench_scaled.py does.
+    ``probe(k, pipe)`` runs after step k; ``stop``: end after that step.
     Returns (pipeline, ground truth, scans/s after 3 warm scans)."""
     pipe, stream = make_scaled(dev, n_scans, n_points)
     pipe.warm_replay()
@@ -944,12 +1138,16 @@ def run_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000):
     for k, (scan, g) in enumerate(stream):
         gt.append(g)
         pipe.step(scan)
+        if probe is not None:
+            probe(k, pipe)
         if k + 1 == warm:          # as bench_scaled.py starts its clock
             pipe.log_odds[:1, :1].cpu()
             t0 = time.perf_counter()
+        if k == stop:
+            break
     pipe.finish()
     pipe.log_odds[:1, :1].cpu()
-    return pipe, np.stack(gt), (n_scans - warm) / (time.perf_counter() - t0)
+    return pipe, np.stack(gt), (len(gt) - warm) / (time.perf_counter() - t0)
 
 
 def scaled_breakdown(dev, card, n_scans=24, window=12) -> dict:
@@ -1063,18 +1261,27 @@ def scaled_profile(dev, card, n_scans=24, window=12) -> dict:
 
 def scaled_phase(dev, card) -> dict:
     """Phase 12: the scaled pipeline at full width, 400 scans."""
-    from icp_tpu_torch.ops.hopper import nn_kernel as K
     from icp_tpu_torch.utils.metrics import ate
 
+    # the state right after the first bundle adjustment (the first
+    # closure's), for the second run to be held to
+    first = {}
+
+    def probe(k, p):
+        if not first and p.stats.ba_runs >= 1:
+            first.update(k=k, closures=p.stats.loop_closures,
+                         traj=np.stack(p.trajectory),
+                         lo=p.log_odds.cpu().clone())
+
     torch.cuda.reset_peak_memory_stats(dev)
-    K.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
-    pipe, gt, sps = run_scaled(dev)
+    pipe, gt, sps = run_scaled(dev, probe=probe)
     ate_stream = ate(np.stack(pipe.trajectory), gt, gt_offset=0)
     pipe.optimize(n_iterations=15)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches = read_counts()
     traj = np.stack(pipe.trajectory)
     ate_ba = ate(traj, gt, gt_offset=0)
     st = pipe.stats
@@ -1103,9 +1310,25 @@ def scaled_phase(dev, card) -> dict:
     assert st.loop_closures >= 1, "no loop closure accepted (scaled)"
     assert st.ba_runs >= 1, "no bundle adjustment (scaled)"
     assert not pipe._map_dirty, "map still dirty after optimize (scaled)"
-    assert launches["nn"] > 0 and launches["nn_min"] > 0, launches
+    assert all_launched(launches), launches
     assert ate_ba <= SCALED_ATE_BOUND_M, \
         f"scaled ATE {ate_ba:.4f} m > {SCALED_ATE_BOUND_M} m"
+
+    # the same run again, cut after the scan of its first bundle adjustment
+    assert first, "no bundle adjustment while streaming (scaled)"
+    t0 = time.perf_counter()
+    again, _, _ = run_scaled(dev, stop=first["k"])
+    traj2, lo2 = np.stack(again.trajectory), again.log_odds
+    same = (traj2.shape == first["traj"].shape
+            and np.array_equal(traj2, first["traj"])
+            and torch.equal(lo2.cpu(), first["lo"]))
+    log(f"  second run, cut to scans 0-{first['k']} (the first bundle "
+        f"adjustment, after {first['closures']} closure(s)) in "
+        f"{time.perf_counter() - t0:.1f} s: trajectory and map bit-equal to "
+        f"the first run's there: {same}; max |pose diff| "
+        f"{float(np.abs(traj2 - first['traj']).max()) if traj2.shape == first['traj'].shape else 'n/a'}")
+    assert again.stats.ba_runs == 1 and again.stats.loop_closures == first["closures"]
+    assert same, "scaled pipeline: the second run differs from the first"
     return {"launches": launches, "sps": sps, "ate_stream": ate_stream,
             "ate": ate_ba, "peak_bytes": peak, "traj": traj,
             "map_shape": tuple(lo.shape),
@@ -1119,7 +1342,6 @@ def file_driven_phase(dev, card, td, gt, n_steps) -> dict:
 
     import icp_tpu_torch.engine as E
     from icp_tpu_torch import cli
-    from icp_tpu_torch.ops.hopper import nn_kernel as K
     from icp_tpu_torch.utils.metrics import ate
 
     out = os.path.join(td, "file_driven")
@@ -1146,7 +1368,7 @@ def file_driven_phase(dev, card, td, gt, n_steps) -> dict:
         return res
 
     E.run_slam = recording_run
-    K.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     try:
         cli.main(["--config", yaml_path, "--device", str(dev), "--quiet",
@@ -1154,7 +1376,7 @@ def file_driven_phase(dev, card, td, gt, n_steps) -> dict:
     finally:
         E.run_slam = real_run
     wall = time.perf_counter() - t0
-    launches = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches = read_counts()
     eng = seen["engine"]
     traj = np.load(npy)
     ate_f = ate(traj[:, :2, 2], gt, indices=eng.pose_scan_indices)
@@ -1171,7 +1393,7 @@ def file_driven_phase(dev, card, td, gt, n_steps) -> dict:
         f"trace {sum(os.path.getsize(t) for t in traces) / 2**20:.1f} MiB; "
         f"lidar parser {eng.lidar_parser}; matplotlib imported: "
         f"{'matplotlib' in sys.modules}")
-    assert launches["nn"] > 0 and launches["nn_min"] > 0, launches
+    assert all_launched(launches), launches
     assert np.isfinite(traj).all() and len(traj) >= MIN_POSES, len(traj)
     assert ate_f <= ATE_BOUND_M, f"file-driven ATE {ate_f:.4f} m > {ATE_BOUND_M} m"
     assert data[:8] == b"\x89PNG\r\n\x1a\n", "map PNG signature"
@@ -1250,7 +1472,7 @@ def icp3d_phase(dev, card, td):
                    method="point_to_point", max_iterations=300,
                    error_threshold=1e-12)
 
-    K.reset_launch_counts()
+    reset_counts()
     res = align()
     err, iters = float(res.error), int(res.iters)
     gap = float((res.R.cpu() - torch.as_tensor(R_true)).abs().max())
@@ -1424,7 +1646,6 @@ def mesh_phase(dev, card, td, base) -> dict:
     Returns the kernels' launch counts of the engine and the scaled
     pipeline on the mesh."""
     from icp_tpu_torch.models.pose_graph import PoseGraph2D, optimize_dense
-    from icp_tpu_torch.ops.hopper import nn_kernel as K
     from icp_tpu_torch.ops.raytrace import (raytrace_update,
                                             raytrace_update_batched)
     from icp_tpu_torch.ops.sweep import sweep_scores
@@ -1542,7 +1763,7 @@ def mesh_phase(dev, card, td, base) -> dict:
         f"(host clock, every card synchronized) on {card}")
 
     # the main path on the mesh: counters reset just before
-    K.reset_launch_counts()
+    reset_counts()
     lc_dict = dict(BENCH_CFG, loop_closure=LC_SECTION,
                    tpu=dict(BENCH_CFG["tpu"], distributed=True,
                             dist_node_threshold=2))
@@ -1550,7 +1771,7 @@ def mesh_phase(dev, card, td, base) -> dict:
     lc_cfg.num_scans = len(base["scans"])
     eng, wall_e = run_engine(lc_cfg, base["imu"], base["scans"], base["rels"],
                              dev, warmup=True)
-    launches_e = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches_e = read_counts()
     s = eng.stats
     traj = np.stack(eng.pose_trajectory)
     ate_e = ate(traj[:, :2, 2], base["gt"], indices=eng.pose_scan_indices)
@@ -1581,14 +1802,14 @@ def mesh_phase(dev, card, td, base) -> dict:
     assert gap_e <= bound_e, f"mesh engine {gap_e:.5f} m from phase 6"
 
     # config #5 on the mesh at full width, 400 scans
-    K.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     pipe, gt, sps = run_scaled(mesh)
     ate_stream = ate(np.stack(pipe.trajectory), gt, gt_offset=0)
     pipe.optimize(n_iterations=15)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches_s = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches_s = read_counts()
     st = pipe.stats
     straj = np.stack(pipe.trajectory)
     ate_s = ate(straj, gt, gt_offset=0)
@@ -1624,9 +1845,8 @@ def mesh_phase(dev, card, td, base) -> dict:
     log(f"  time_gn_step on the {pipe.pose_graph.n_nodes}-node graph, D = {D}: "
         f"schur {gn['schur']:.2f} ms, cg {gn['cg']:.2f} ms a step "
         f"(partition {1e3 * st.partition_wall:.2f} ms, host) on {card}")
-    for key in ("nn", "nn_min"):
-        assert launches_e[key] > 0 and launches_s[key] > 0, \
-            (launches_e, launches_s)
+    assert all_launched(launches_e) and all_launched(launches_s), \
+        (launches_e, launches_s)
     if virtual:
         set_virtual_devices(0, dev)
 
@@ -1664,7 +1884,6 @@ def run(td, mesh_only=False):
     bench CSVs and what phase 13 writes."""
     from icp_tpu_torch.engine import SlamEngine
     from icp_tpu_torch.ops.hopper import build
-    from icp_tpu_torch.ops.hopper import nn_kernel as K
     from icp_tpu_torch.utils.config import SlamConfig
     from icp_tpu_torch.utils.metrics import ate
 
@@ -1676,12 +1895,14 @@ def run(td, mesh_only=False):
 
     # ── 2. build ─────────────────────────────────────────────────────────
     t0 = time.perf_counter()
-    build.load()
-    log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})")
-    for line in (build.build_log or "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build.load_all()                 # one nvcc a source, all at once
+    log(f"kernel build+load ({', '.join(build.SOURCES)}): "
+        f"{time.perf_counter() - t0:.2f} s (nvcc "
+        f"{build.build_seconds if build.build_seconds is not None else 'cached'})")
+    for name, text in build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
 
     # ── 3. kernels against their plain versions ──────────────────────────
     gt, scans, rels, imu = load_sequence(td)
@@ -1703,11 +1924,14 @@ def run(td, mesh_only=False):
     log(f"kernel checks (sweep caps {src_cap}, {tgt_cap}; nn_min_cuda sweep "
         f"shapes {sweep_shapes}):")
     err = None if mesh_only else check_kernels(dev, sweep_shapes)
+    if not mesh_only:
+        seg_cases, seg_edges = segment_cases(scans, gt)
+        err["segment_add"] = check_segment_add(dev, seg_cases + seg_edges)
 
     # ── 4. the main path ─────────────────────────────────────────────────
-    K.reset_launch_counts()
+    reset_counts()
     eng, wall1 = run_engine(cfg, imu, scans, rels, dev)
-    launches = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches = read_counts()
     n_steps = len(scans) - 1
     log(f"main path: {len(eng.pose_trajectory)} poses, "
         f"{eng.stats.submap_corrections} submap corrections, "
@@ -1715,7 +1939,7 @@ def run(td, mesh_only=False):
         f"iterations, {wall1:.2f} s cold; launches {launches}, per scan "
         f"nn {launches['nn'] / n_steps:.2f} nn_min "
         f"{launches['nn_min'] / n_steps:.2f}")
-    assert launches["nn"] > 0 and launches["nn_min"] > 0, launches
+    assert all_launched(launches), launches
     traj = np.stack(eng.pose_trajectory)
     assert np.isfinite(traj).all(), "non-finite pose"
     assert len(traj) >= MIN_POSES, f"only {len(traj)} poses"
@@ -1731,7 +1955,7 @@ def run(td, mesh_only=False):
     # ── 5. warm pass and kernel timings ──────────────────────────────────
     eng2, wall2 = run_engine(cfg, imu, scans, rels, dev)
     traj2 = np.stack(eng2.pose_trajectory)
-    # two single-device passes differ by the CUDA scatter-adds' order
+    # the ordered scatter-sums make the two passes bit-equal
     spread = (float(np.linalg.norm(traj2[:, :2, 2] - traj[:, :2, 2],
                                    axis=1).max())
               if traj2.shape == traj.shape else None)
@@ -1740,19 +1964,25 @@ def run(td, mesh_only=False):
         f"on {card}; warm-pass max |pose diff| vs cold "
         f"{float(np.abs(traj2 - traj).max()) if traj2.shape == traj.shape else 'n/a'}"
         f", position {spread}")
+    assert traj2.shape == traj.shape and np.array_equal(traj2, traj), \
+        f"the warm pass's trajectory differs from the cold pass's ({spread} m)"
+    assert torch.equal(eng2.mapper.log_odds, lo), \
+        "the warm pass's log-odds map differs from the cold pass's"
+    log("warm pass bit-equal to the cold pass: trajectory and log-odds map")
 
     assert eng._sweep_caps == (src_cap, tgt_cap), eng._sweep_caps
     if not mesh_only:
         timings = time_kernels(dev, cfg.scan_capacity, cfg.submap_capacity,
                                sweep_shapes, card)
+        timings["segment_add"] = time_segment_add(dev, seg_cases, card)
 
     # ── 6. the loop-closure path ─────────────────────────────────────────
     lc_dict = dict(BENCH_CFG, loop_closure=LC_SECTION)
     lc_cfg = SlamConfig.from_dict(lc_dict)
     lc_cfg.num_scans = len(scans)      # as bench_suite sets it
-    K.reset_launch_counts()
+    reset_counts()
     eng_lc, wall_lc = run_engine(lc_cfg, imu, scans, rels, dev, warmup=True)
-    launches_lc = {"nn": K.nn_launches, "nn_min": K.nn_min_launches}
+    launches_lc = read_counts()
     s = eng_lc.stats
     traj_lc = np.stack(eng_lc.pose_trajectory)
     lo_lc = eng_lc.mapper.log_odds
@@ -1773,8 +2003,18 @@ def run(td, mesh_only=False):
     assert int((lo_lc != 0).sum()) > 0, "empty map (loop closure)"
     assert ate_lc <= LC_ATE_BOUND_M, f"LC ATE {ate_lc:.4f} m > {LC_ATE_BOUND_M} m"
     assert ate_lc < ate_m, f"LC ATE {ate_lc:.4f} m >= no-LC ATE {ate_m:.4f} m"
-    assert launches_lc["nn"] > 0, launches_lc
+    assert launches_lc["nn"] > 0 and launches_lc["segment_add"] > 0, launches_lc
     assert launches_lc["nn_min"] > launches["nn_min"], (launches_lc, launches)
+    eng_lc2, _ = run_engine(lc_cfg, imu, scans, rels, dev, warmup=True)
+    traj_lc2 = np.stack(eng_lc2.pose_trajectory)
+    same = (traj_lc2.shape == traj_lc.shape
+            and np.array_equal(traj_lc2, traj_lc)
+            and torch.equal(eng_lc2.mapper.log_odds, lo_lc)
+            and eng_lc2.stats.loop_closures == s.loop_closures)
+    log(f"loop-closure path run again: loop_closures="
+        f"{eng_lc2.stats.loop_closures}; trajectory, map and closures "
+        f"bit-equal to the first run: {same}")
+    assert same, "the loop-closure path's second run differs from its first"
 
     if not mesh_only:
         # ── 7. pose-graph solve timings ──────────────────────────────────
@@ -1850,6 +2090,29 @@ def run(td, mesh_only=False):
             # no one torch call gives the masked min squared distance:
             # torch.cdist returns square roots, through the matmul expansion
             "library_ms": None, "shapes": shapes})
+    # icp_segment_add: port-only, in place of CUDA index_add_'s atomics; its
+    # top-level figures are the main path's submap merge
+    seg = timings["segment_add"]
+    top = seg["submap merge 30720 -> 4096"]
+    kernels.append({
+        "name": "icp_segment_add", "route": "cuda",
+        "source": "icp_tpu_torch/csrc/segment_add.cu",
+        # no Pallas kernel: it stands for icp_tpu's XLA scatter-adds (the
+        # voxel means'), which XLA runs in a fixed order
+        "replaces": "icp_tpu/ops/voxel.py:65",
+        "launches": launches["segment_add"],
+        "launches_by_path": {"main": launches["segment_add"],
+                             "loop_closure": launches_lc["segment_add"],
+                             **{path: n["segment_add"]
+                                for path, n in launches_feat.items()}},
+        "launches_per_main_scan": launches["segment_add"] / n_steps,
+        "max_abs_err": err["segment_add"], "shape": "30720x3 -> 4096",
+        "ms": top["ms"], "plain_ms": top["plain_ms"], "plain_device": "cpu",
+        "device_ms": top["device_ms"], "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"], "bound_share": top["bound_share"],
+        # one torch call, the same sums in no fixed order: CUDA index_add_
+        "library_ms": top["library_ms"],
+        "library_device_ms": top["library_device_ms"], "shapes": seg})
     print(card, flush=True)       # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

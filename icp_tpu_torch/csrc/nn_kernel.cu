@@ -74,13 +74,13 @@
 // main path, 115,968 and 24,576 x 1792 without IMU, 184,320 and 23,040 x
 // 768 in loop-closure verification.
 //
-//   Bound. A pair costs 6 float32 operations (2 subtracts, 2 multiplies,
-//   1 add, 1 min); at the H100's 67 TFLOP/s that is 18.61 us at 115,968 x
-//   1792. The bytes are negligible (1.41 MB there, 0.42 us at 3.35 TB/s):
-//   every shape is compute-bound. The 67 TFLOP/s counts an FMA as two
-//   operations, and bit-equality with the plain version forbids FMA, so 6
-//   single-issue instructions a pair make 50 % of the bound the ceiling of
-//   any bit-exact kernel (37.3 us at 115,968 x 1792 at 1.98 GHz).
+//   Bound. A pair costs 6 FP32 instructions (2 subtracts, 2 multiplies,
+//   1 add, 1 min): bit-equality with the plain version forbids FMA, so
+//   none fuses, and the H100's 67 TFLOP/s (an FMA counted as two) is 33.5
+//   T instructions a second at 1.98 GHz: 37.2 us at 115,968 x 1792
+//   (chip_smoke.py's kernel_bound; icp_nn's argmin adds a compare and a
+//   select, 7 a pair). The bytes are negligible (1.41 MB there, 0.42 us
+//   at 3.35 TB/s): every shape is bound by operations.
 //   No tensor cores: ||s||^2 + ||t||^2 - 2 s.t gives other bits, and in
 //   f32 it cancels catastrophically at map coordinates of tens of metres
 //   (||s||^2 ~ 1e3 m^2 against the ~1e-4 m^2 being ranked); TF32 is worse.
@@ -115,10 +115,9 @@
 //   Times on an H100 80GB HBM3 at 700 W, device-only (CUDA-graph replays,
 //   chip_smoke.py): 7.65 / 9.46 / 12.78 / 45.87 us at 9,984 / 15,360 /
 //   24,576 / 115,968 x 1792 and 7.14 / 33.60 us at 23,040 / 184,320 x
-//   768: 40.6 % and 37.7 % of the bound at the two large shapes, ~80 % of
-//   the no-FMA ceiling. Past the fixed cost the issue rate reached is
-//   ~0.89 of one instruction a cycle at 115,968 rows and ~0.72 at 15,360
-//   (tools/nn_min_sweep.py --detail). At the main path's shapes ~2 us are
+//   768: 81 % and 75 % of the bound at the two large shapes. Past the
+//   fixed cost the issue rate reached is ~0.89 of one instruction a cycle
+//   at 115,968 rows and ~0.72 at 15,360 (tools/nn_min_sweep.py --detail). At the main path's shapes ~2 us are
 //   fixed (the launch and one global round trip) and the rest is the
 //   busiest SM's share of pairs.
 

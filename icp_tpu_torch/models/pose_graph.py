@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from icp_tpu_torch.ops.scatter import ordered_index_add_
 from icp_tpu_torch.utils.masking import next_pow2
 from icp_tpu_torch.utils.se2 import pose_to_vec_np, vec_to_pose_np, wrap_angle
 
@@ -97,13 +98,16 @@ def _scatter_dense(n, ei, ej, Hii, Hij, Hji, Hjj, bi, bj):
     def flat(rows, cols):                              # (E, 3, 3) into H
         return (rows[:, :, None] * (3 * n) + cols[:, None, :]).reshape(-1)
 
+    # one ordered scatter-sum each for H and b, the blocks concatenated:
+    # the same bits as one index_add_ a block, in this order, on the CPU
     H = torch.zeros(9 * n * n, dtype=dt, device=dev)
-    for rows, cols, blk in ((ri, ri, Hii), (ri, rj, Hij), (rj, ri, Hji),
-                            (rj, rj, Hjj)):
-        H.index_add_(0, flat(rows, cols), blk.reshape(-1))
+    ordered_index_add_(
+        H, torch.cat([flat(ri, ri), flat(ri, rj), flat(rj, ri), flat(rj, rj)]),
+        torch.cat([Hii.reshape(-1), Hij.reshape(-1), Hji.reshape(-1),
+                   Hjj.reshape(-1)]))
     b = torch.zeros(3 * n, dtype=dt, device=dev)
-    b.index_add_(0, ri.reshape(-1), bi.reshape(-1))
-    b.index_add_(0, rj.reshape(-1), bj.reshape(-1))
+    ordered_index_add_(b, torch.cat([ri.reshape(-1), rj.reshape(-1)]),
+                       torch.cat([bi.reshape(-1), bj.reshape(-1)]))
     return H.view(3 * n, 3 * n), b
 
 

@@ -15,8 +15,10 @@ answer TPU scatter costs and are not ported: ``index_add_`` adds directly.
 With lo_min = -inf and lo_max = +inf the grid keeps the unclamped sum.
 
 The update functions write into ``log_odds`` in place (the counterpart of
-icp_tpu donating the grid to the fused step) and return it. Scatter-add
-order on CUDA is not fixed, so sums match icp_tpu to f32 rounding.
+icp_tpu donating the grid to the fused step) and return it. CUDA's
+``index_add_`` adds in no fixed order, but every add of one call is the
+same constant, so a run repeats bit for bit; icp_tpu's run-length dedup
+adds count * l_hit at once, so sums match icp_tpu to f32 rounding.
 """
 from __future__ import annotations
 
@@ -75,6 +77,8 @@ def _paint(log_odds, hx, hy, hit_valid, fx, fy, free_active,
     hx, hy, hit_valid = hx.reshape(-1), hy.reshape(-1), hit_valid.reshape(-1)
     hit_in = hit_valid & (hx >= 0) & (hx < nx) & (hy >= 0) & (hy < ny)
     hkey = (hy * nx + hx)[hit_in]
+    # each call adds one constant to every cell it touches (l_hit here,
+    # l_miss below), so the sums do not depend on the atomics' order
     flat.index_add_(0, hkey, torch.full(hkey.shape, l_hit, dtype=flat.dtype,
                                         device=flat.device))
     fx, fy, free_active = fx.reshape(-1), fy.reshape(-1), free_active.reshape(-1)

@@ -33,6 +33,7 @@ import torch
 from icp_tpu_torch.models.pose_graph import (ANCHOR_WEIGHT, _block_products,
                                              _scatter_dense, edge_terms,
                                              robust_omega)
+from icp_tpu_torch.ops.scatter import ordered_index_add_
 from icp_tpu_torch.parallel.mesh import Mesh
 from icp_tpu_torch.utils.se2 import wrap_angle
 
@@ -129,13 +130,19 @@ def gn_step_cg_sharded(mesh: Mesh, nodes, node_mask, ei, ej, z, omega,
         om = om * lem.to(nd.dtype)[:, None, None]
         AtO = torch.einsum("eij,eik->ejk", A, om)
         BtO = torch.einsum("eij,eik->ejk", B, om)
+        # every add below goes to the nodes i then j of each edge: sort
+        # [ei, ej] once; the ordered sums give the bits of an index_add_
+        # at ei followed by one at ej
+        sidx, perm = torch.sort(torch.cat([lei, lej]), stable=True)
         b = torch.zeros((n, 3), dtype=nd.dtype, device=dev)
-        b.index_add_(0, lei, torch.einsum("ejk,ek->ej", AtO, e))
-        b.index_add_(0, lej, torch.einsum("ejk,ek->ej", BtO, e))
+        ordered_index_add_(b, sidx, torch.cat([
+            torch.einsum("ejk,ek->ej", AtO, e),
+            torch.einsum("ejk,ek->ej", BtO, e)])[perm], sorted_index=True)
         Dblk = torch.zeros((n, 3, 3), dtype=nd.dtype, device=dev)
-        Dblk.index_add_(0, lei, torch.einsum("ejk,ekl->ejl", AtO, A))
-        Dblk.index_add_(0, lej, torch.einsum("ejk,ekl->ejl", BtO, B))
-        shards.append((lei, lej, A, B, om))
+        ordered_index_add_(Dblk, sidx, torch.cat([
+            torch.einsum("ejk,ekl->ejl", AtO, A),
+            torch.einsum("ejk,ekl->ejl", BtO, B)])[perm], sorted_index=True)
+        shards.append((lei, lej, A, B, om, sidx, perm))
         bs.append(b)
         Ds.append(Dblk)
 
@@ -153,13 +160,15 @@ def gn_step_cg_sharded(mesh: Mesh, nodes, node_mask, ei, ej, z, omega,
         # per edge s = A x_i + B x_j; y_i += A^T om s, y_j += B^T om s
         xp = torch.where(freec, x, 0.0)
         ys = []
-        for xs, (lei, lej, A, B, om) in zip(mesh.replicate(xp), shards):
+        for xs, (lei, lej, A, B, om, sidx, perm) in zip(mesh.replicate(xp),
+                                                        shards):
             s = (torch.einsum("ejk,ek->ej", A, xs[lei])
                  + torch.einsum("ejk,ek->ej", B, xs[lej]))
             oms = torch.einsum("ejk,ek->ej", om, s)
             y = torch.zeros_like(xs)
-            y.index_add_(0, lei, torch.einsum("ekj,ek->ej", A, oms))
-            y.index_add_(0, lej, torch.einsum("ekj,ek->ej", B, oms))
+            ordered_index_add_(y, sidx, torch.cat([
+                torch.einsum("ekj,ek->ej", A, oms),
+                torch.einsum("ekj,ek->ej", B, oms)])[perm], sorted_index=True)
             ys.append(y)
         y = mesh.psum(ys)[0] + damping * dvec * xp   # (H + damping diag(H)) x
         return torch.where(freec, y, 0.0)
@@ -381,7 +390,8 @@ def gn_step_schur_sharded(mesh: Mesh, nodes, node_mask,
             mesh.devices, mesh.replicate(dx_S), local):
         dx_I = -(X_IS @ dxs + x_b)            # = H_II^-1 (-b_I - H_IS dx_S)
         dx = torch.zeros((n + 1, 3), dtype=dx_I.dtype, device=dev)
-        dx.index_add_(0, int_ids, dx_I.reshape(i_cap, 3) * int_valid[:, None])
+        ordered_index_add_(dx, int_ids,
+                           dx_I.reshape(i_cap, 3) * int_valid[:, None])
         parts.append(dx)
     dx = mesh.psum(parts)[0]
     dx[uid] = dx_S.reshape(s, 3)

@@ -20,8 +20,9 @@ the helpers below, which stand in for what ``shard_map`` gave icp_tpu:
   across processes too (``out_specs=P(axis)``);
 * ``axis_index`` is a local shard's global index;
 * ``broadcast`` gives every process process 0's values of state they all
-  compute (CUDA's atomics make repeated device math differ in the last
-  bits, which XLA's deterministic programs never did).
+  compute, so their decisions cannot part wherever their device math could
+  still round apart (the port's scatter-sums are ordered, so one card
+  repeats itself; other cards or library builds need not).
 
 ``set_virtual_devices(n, device)`` is the counterpart of XLA's
 ``--xla_force_host_platform_device_count``: after it, ``visible_devices``
@@ -155,9 +156,9 @@ class Mesh:
     def broadcast(self, xs) -> list[torch.Tensor]:
         """Process 0's values of ``xs`` (tensors on one device) on every
         process, in one collective; ``xs`` itself in one process. For state
-        every process computes redundantly: CUDA's atomic adds make two runs
-        of the same device math differ in the last bits, and processes that
-        kept their own results could take different decisions. The values
+        every process computes redundantly: processes that kept their own
+        results could take different decisions wherever their device math
+        rounds apart (other cards, other library builds). The values
         travel as float32, exact for the bools and the integers below 2**24
         passed here."""
         xs = list(xs)

@@ -5,10 +5,11 @@
 Builds ``csrc/nn_kernel.cu``, and at each of the six sweep shapes holds
 icp_nn_min at every candidate geometry (k rows a lane, csize blocks a
 cluster, the slice they give) bit for bit against ``nn_min_plain`` and
-times it by CUDA-graph replays (device only), beside the bound (6 flops a
-pair at 67 TFLOP/s) and ``nn_min_geometry``'s pick. With ``--against``, it
-also builds OLD.cu, an earlier ``nn_kernel.cu`` whose ``icp_nn_min`` takes
-(src, tgt, mask, n, m, out, stream), and times that kernel on the same
+times it by CUDA-graph replays (device only), beside the bound (6 FP32
+instructions a pair at 33.5 T a second: the 67 TFLOP/s without FMA) and
+``nn_min_geometry``'s pick. With ``--against``, it also builds OLD.cu,
+an earlier ``nn_kernel.cu`` whose ``icp_nn_min`` takes (src, tgt, mask,
+n, m, out, stream), and times that kernel on the same
 inputs before and after the sweep. With ``--detail``, it also times the
 picked geometry against the target count at 15,360 and 115,968 rows (the
 fixed cost and the cost a target), an empty graph node, and reads the SM
@@ -30,7 +31,7 @@ import time
 SHAPES = {"main coarse": (13 * 768, 1792), "main fine": (20 * 768, 1792),
           "no-IMU coarse": (151 * 768, 1792), "no-IMU fine": (32 * 768, 1792),
           "LC coarse": (240 * 768, 768), "LC fine": (30 * 768, 768)}
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_INSTR_S = 67e12 / 2      # the kernel rounds each operation: no FMA
 
 
 def graph_us(fn, calls=20, replays=10) -> float:
@@ -123,7 +124,7 @@ def main(argv=None):
         plain = K.nn_min_plain(r, g, m)
         pick = K.nn_min_geometry(n, mt, sms)
         row = {"shape": f"{n}x{mt}", "pick": list(pick),
-               "bound_us": 1e6 * 6 * n * mt / PEAK_F32_FLOPS,
+               "bound_us": 1e6 * 6 * n * mt / PEAK_F32_INSTR_S,
                "plain_us": graph_us(lambda: K.nn_min_plain(r, g, m), calls=5, replays=4)}
         if old is not None:
             assert torch.equal(launch_old(r, g, m), plain), f"old kernel at {label}"

@@ -50,6 +50,18 @@ def _sum(x: torch.Tensor, dim):
     return x.sum() if dim is None else x.sum(dim)
 
 
+def masked_min(x, mask, dim=None):
+    """Min of x over entries where mask is True (BIG where all are masked)."""
+    x = torch.where(mask, x, BIG)
+    return x.amin() if dim is None else x.amin(dim)
+
+
+def masked_max(x, mask, dim=None):
+    """Max of x over entries where mask is True (-BIG where all are masked)."""
+    x = torch.where(mask, x, -BIG)
+    return x.amax() if dim is None else x.amax(dim)
+
+
 def masked_mean(x, mask, dim=None, eps=1e-12):
     """Mean of x over entries where mask is True (mask broadcasts to x)."""
     m = mask.to(x.dtype)

@@ -53,6 +53,24 @@ def rotmat(theta):
     return torch.stack([row0, row1], dim=-2)
 
 
+def pose_inverse(T):
+    """Inverse of (..., 3, 3) SE(2) homogeneous matrices, closed form:
+    [R^T, -R^T t; 0, 1]."""
+    Rt = T[..., :2, :2].transpose(-1, -2)
+    ti = -torch.einsum("...ij,...j->...i", Rt, T[..., :2, 2])
+    return make_pose(Rt, ti)
+
+
+def pose_compose(Ta, Tb):
+    """Ta @ Tb for (..., 3, 3) homogeneous SE(2) matrices."""
+    return torch.einsum("...ij,...jk->...ik", Ta, Tb)
+
+
+def relative_pose_vec(Ti, Tj):
+    """z_ij = vec(Ti^-1 @ Tj): the relative pose of j seen from i."""
+    return pose_to_vec(pose_compose(pose_inverse(Ti), Tj))
+
+
 def make_pose(R, t):
     """Assemble a 3x3 homogeneous matrix from R (..., 2, 2) and t (..., 2)."""
     top = torch.cat([R, t[..., None]], dim=-1)
@@ -68,6 +86,12 @@ def transform_points(points, pose):
     return points @ R.transpose(-1, -2) + t[..., None, :]
 
 
+def apply_rt(points, R, t):
+    """points @ R^T + t for (..., N, D) points: the forward transform of
+    ICP's (R, t)."""
+    return torch.einsum("...nd,...ed->...ne", points, R) + t[..., None, :]
+
+
 def apply_incremental_pose(global_pose, r, t):
     """global_pose @ inverse([r, t]): accumulate the inverse of ICP's
     forward transform into the global pose."""
@@ -79,3 +103,10 @@ def apply_incremental_pose(global_pose, r, t):
 def yaw_of_pose(T):
     """Yaw of a (..., 3, 3) pose matrix."""
     return torch.atan2(T[..., 1, 0], T[..., 0, 0])
+
+
+def quat_to_yaw(qx, qy, qz, qw):
+    """Yaw (rotation about z) of the quaternion (x, y, z, w)."""
+    siny_cosp = 2.0 * (qw * qz + qx * qy)
+    cosy_cosp = 1.0 - 2.0 * (qy * qy + qz * qz)
+    return torch.atan2(siny_cosp, cosy_cosp)

@@ -8,17 +8,21 @@ of ``large_scan_stream`` in a 10 m arena (seed 1), registration by
 icp_large on a 32 x 32 grid, loop closure every 2 scans. Each package runs
 it once per module (and saves a checkpoint on the way); every
 test reads those runs. Tolerances:
-* positions within 1 cm over all 40 scans. The packages agree to ~1 um a
-  scan until a point lands on the other side of a cell boundary (sums
-  taken in another order move it by an ulp); that changes which points a
-  full cell keeps, and the pipeline carries the difference on (icp_tpu's
-  own resume test measured ~1 mm over 20 scans from a 1-ulp change). On
-  this run it starts at scan 13 and reaches 3.6 mm before the first
-  bundle adjustment and 6.0 mm after it;
+* positions within 2 mm over all 40 scans. The keyframe voxel means are
+  icp_tpu's deviation-from-centre form, summed in order (icp_tpu differences
+  cumulative sums), so the packages still round apart by an ulp now and
+  then; the pipeline carries that on (icp_tpu's own resume test measured
+  ~1 mm over 20 scans from a 1-ulp change). On this run the gap grows
+  ~10 um a scan to 0.37 mm before the first bundle adjustment and peaks
+  at 1.14 mm after it (6.0 mm with raw-coordinate means, whose bound
+  was 1 cm);
 * loop closures, closure checks, BA runs and gate fallbacks equal;
-  ``reg_dropped_points`` within 1 % (the same boundary points);
+  ``reg_dropped_points`` within 0.1 % (equal on this run; 9,127 against
+  9,133 with raw-coordinate means, whose bound was 1 %);
 * maps: log-odds of ``map_probability()`` within 1e-3 except at cells that
-  a boundary hit moved (ROADMAP Queue 3), at most 5 % of the painted cells;
+  a boundary hit moved (ROADMAP Queue 3), at most 1 % of the painted cells
+  (19 of 4,870 on this run; 154 with raw-coordinate means, whose bound
+  was 5 %);
 * checkpoints: a run resumed from the other package's checkpoint (at scan
   20 from icp_tpu's, at scan 30 from the port's) ends within 0.05 m ATE
   of both uninterrupted runs.
@@ -122,13 +126,13 @@ def test_scaled_pipeline_matches_icp_tpu(runs, scans):
     j, t = runs["jax"], runs["torch"]
     assert len(t["traj"]) == len(j["traj"]) == N_SCANS
     gap = np.abs(_xy(t["traj"]) - _xy(j["traj"])).max()
-    assert gap < 0.01, f"positions differ by {gap:.4g} m"
+    assert gap < 2e-3, f"positions differ by {gap:.4g} m"
     for k in ("scans", "loop_closures", "lc_checked", "lc_candidates",
               "ba_runs", "gate_fallbacks"):
         assert t["stats"][k] == j["stats"][k], (k, t["stats"][k], j["stats"][k])
     assert t["stats"]["loop_closures"] >= 1 and t["stats"]["ba_runs"] >= 1
     dj, dt = j["stats"]["reg_dropped_points"], t["stats"]["reg_dropped_points"]
-    assert dj > 0 and abs(dt - dj) <= 0.01 * dj, (dt, dj)
+    assert dj > 0 and abs(dt - dj) <= 0.001 * dj, (dt, dj)
     # both trajectories are as accurate as test_scaled_pipeline.py asks
     for r in (j, t):
         assert _ate(r["traj"], _rel(gt)) < 0.5
@@ -139,7 +143,7 @@ def test_scaled_pipeline_matches_icp_tpu(runs, scans):
     painted = int((np.abs(lj) > 1e-6).sum())
     moved = int((np.abs(lt - lj) > 1e-3).sum())
     assert painted > 2000
-    assert moved <= 0.05 * painted, (moved, painted)
+    assert moved <= 0.01 * painted, (moved, painted)
     assert (pt > 0.6).sum() > 200 and (pt < 0.4).sum() > 2000
     assert np.isfinite(pt).all()
 
