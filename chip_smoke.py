@@ -12,9 +12,12 @@ Phases (any failed check ends the run with a non-zero exit code):
      bit: icp_segment_add (ordered_index_add_) against CPU index_add_ at
      the adds the paths make (the submap merge's 30,720 rows into 4,096
      slots, a scan's 768, config #5's 131,072-row keyframe, a 1,024-node
-     graph's H, b and per-node blocks, f32 and f64) and its edges (no
-     rows, one run, an unsorted index into a non-zero out), one launch a
-     call; nn_cuda at the main path's shapes plus ragged and tie cases,
+     graph's H, b and per-node blocks, f32 and f64: with every row, as
+     before segment plans, and on plans built on the card with the padded
+     edges left out, held to index_add_ of every row and of the kept rows;
+     the same graph with a hub node of 256 edges) and its edges (no rows,
+     one run, an unsorted index into a non-zero out), one launch a call;
+     nn_cuda at the main path's shapes plus ragged and tie cases,
      nn_min_cuda at the six sweep shapes (the IMU main path's, the no-IMU
      path's and loop-closure verification's coarse and fine passes) and
      its edge cases (M = 0, all masked, R = 1, M odd, an unaligned target,
@@ -33,8 +36,11 @@ Phases (any failed check ends the run with a non-zero exit code):
      only), each shape beside its bound (7 or 6 FP32 instructions a pair
      at the H100's 33.5 T a second, the 67 TFLOP/s peak without FMA, or
      its bytes at 3.35 TB/s if more); and icp_segment_add against CUDA
-     index_add_ and CPU index_add_ (its plain version) at phase 3's path
-     shapes, beside each one's bytes at 3.35 TB/s;
+     index_add_, CPU index_add_ (its plain version) and an empty kernel at
+     its grid (the floor of one launch) at the paths' shapes as they call
+     it (the voxel means on a sorted index; the pose graph's H, b, PCG b
+     and blocks on plans), beside each one's bytes at 3.35 TB/s, and each
+     plan's build (the sort a solve makes once) on a line of its own;
   6. drive the loop-closure path: the same sequence with bench_suite's
      loop-closure section (first scan, warmup, batches of 16 with rollback
      at accepted closures, finish, sync_map), counters reset just before;
@@ -42,7 +48,8 @@ Phases (any failed check ends the run with a non-zero exit code):
      and map, and more nn_min_cuda launches than phase 4; then run it again
      and check the two runs bit-equal (trajectory, map, closures);
   7. time PoseGraph2D.optimize through the dense and the PCG solve at
-     1024 and 4096 nodes (printed only);
+     1024 and 4096 nodes (printed only), and check that each solve built
+     its segment plans once (2 dense, 1 PCG) against its GN iterations;
   8. drive the features path: the sequence without IMU and with
      bench_suite's features section (curvature keypoints, descriptors,
      RANSAC; the submap sweep over +-60 degrees), counters reset just
@@ -512,13 +519,16 @@ def all_launched(counts) -> bool:
 
 def recorded_adds(fn, *modules):
     """Run fn() with every ordered_index_add_ call that ``modules`` make
-    recorded: [(out before the add, index, src, sorted_index)]."""
+    recorded: [(out before the add, index or segment plan, src,
+    sorted_index)]."""
     from icp_tpu_torch.ops import scatter as SC
 
     calls, real = [], SC.ordered_index_add_
 
     def rec(out, index, src, *, sorted_index=False):
-        calls.append((out.clone(), index.clone(), src.clone(), sorted_index))
+        if not isinstance(index, SC.SegmentPlan):
+            index = index.clone()
+        calls.append((out.clone(), index, src.clone(), sorted_index))
         return real(out, index, src, sorted_index=sorted_index)
 
     for m in modules:
@@ -531,15 +541,33 @@ def recorded_adds(fn, *modules):
     return calls
 
 
+def _every_row(call):
+    """A recorded pose-graph add as the paths made it before segment
+    plans: every row, padded edges included, the index sorted in the call
+    (the dense H and b) or beforehand (the PCG step's)."""
+    out, plan, src, _ = call
+    return out, plan.index, src, False
+
+
+def _presorted(call):
+    out, plan, src, _ = call
+    sidx, perm = torch.sort(plan.index, stable=True)
+    return out, sidx, src[perm], True
+
+
 def segment_cases(scans, gt):
     """(path cases, edge cases), each a list of (label, out, index, src,
-    sorted_index) on the CPU for icp_segment_add. The path cases are the
+    sorted_index) on the CPU for icp_segment_add; ``index`` is a tensor or
+    a CPU segment plan (``ops.scatter.SegmentPlan``, padded edges left
+    out), which the checks rebuild on the card. The path cases are the
     adds the paths make, recorded from the functions that make them on the
     CPU: the main path's 40-scan submap merge and a scan's voxels, config
     #5's 100k-point keyframe into 8,192 slots, a 1,024-node graph's dense
-    H and b (f32 and f64) and the PCG step's per-node blocks. The edges:
-    no rows, one run holding every row, an unsorted index into a non-zero
-    out."""
+    H and b (f32 and f64) and the PCG step's per-node b, blocks and Hx,
+    each as the paths make them now (on plans) and as they made them
+    before (every row), and the same graph with a hub, one node of 256
+    real edges. The edges: no rows, one run holding every row, an
+    unsorted index into a non-zero out."""
     from icp_tpu_torch.models import pose_graph as PG
     from icp_tpu_torch.models.pose_graph import PoseGraph2D, optimize_dense
     from icp_tpu_torch.ops import voxel as V
@@ -566,13 +594,34 @@ def segment_cases(scans, gt):
     g = pg._packed_device()
     H, b = recorded_adds(lambda: optimize_dense(*g[:7], 0, n_iterations=1,
                                                 convergence_eps=0.0), PG)
-    cases += [("graph H 1024 nodes (width 1)", *H), ("graph b (width 1)", *b)]
+    cases += [("graph H 1024 nodes (width 1)", *_every_row(H)),
+              ("graph b (width 1)", *_every_row(b))]
     g64 = [x.double() if x.is_floating_point() else x for x in g]
     H64, _ = recorded_adds(lambda: optimize_dense(*g64[:7], 0, n_iterations=1,
                                                   convergence_eps=0.0), PG)
-    cases.append(("graph H f64 (width 1)", *H64))
+    cases.append(("graph H f64 (width 1)", *_every_row(H64)))
     cg = recorded_adds(lambda: DP.gn_step_cg(*g[:7], 0, cg_iters=1), DP)
-    cases += [("PCG b (width 3)", *cg[0]), ("PCG blocks (width 9)", *cg[1])]
+    cases += [("PCG b (width 3)", *_presorted(cg[0])),
+              ("PCG blocks (width 9)", *_presorted(cg[1]))]
+    cases += [("plan: graph H 1024 nodes (width 1)", *H),
+              ("plan: graph b (width 1)", *b),
+              ("plan: graph H f64 (width 1)", *H64),
+              ("plan: PCG b (width 3)", *cg[0]),
+              ("plan: PCG blocks (width 9)", *cg[1]),
+              ("plan: PCG Hx (width 3)", *cg[2])]
+    # the hub: node n // 2 gets closures to every 4th node until it has 256
+    hub = _chain_with_closures(PoseGraph2D("cpu"), 1024, every=16)
+    deg = sum((i == 512) + (j == 512) for i, j in zip(hub._edges_i,
+                                                        hub._edges_j))
+    for j in [j for j in range(2, 1024, 4)][:256 - deg]:
+        hub.add_edge(512, j, [0.1, 0.0, 0.0], np.eye(3) * 50.0)
+    gh = hub._packed_device()
+    Hh, bh = recorded_adds(lambda: optimize_dense(*gh[:7], 0, n_iterations=1,
+                                                  convergence_eps=0.0), PG)
+    cgh = recorded_adds(lambda: DP.gn_step_cg(*gh[:7], 0, cg_iters=1), DP)
+    cases += [("plan: hub H (width 1)", *Hh), ("plan: hub b (width 1)", *bh),
+              ("plan: hub PCG b (width 3)", *cgh[0]),
+              ("plan: hub PCG blocks (width 9)", *cgh[1])]
     rng = np.random.default_rng(9)
     edges = [
         ("no rows", torch.zeros((16, 3)), torch.zeros(0, dtype=torch.int64),
@@ -589,75 +638,155 @@ def segment_cases(scans, gt):
     return cases, edges
 
 
+def card_plan(index, dev):
+    """A recorded CPU segment plan built again on ``dev``, as the path
+    builds it there (None for a plain index)."""
+    from icp_tpu_torch.ops import scatter as SC
+
+    if not isinstance(index, SC.SegmentPlan):
+        return None
+    return SC.segment_plan(index.index.to(dev), index.n_slots,
+                           keep=None if index.keep is None
+                           else index.keep.to(dev))
+
+
 def check_segment_add(dev, cases) -> float:
     """Phase 3: icp_segment_add against CPU index_add_ on each case, bit
-    for bit, one launch a call (none without rows). Returns the max
-    absolute error (0.0)."""
+    for bit, one launch a call (none without rows). A plan case (padded
+    edges left out) is held against index_add_ of every row and of the
+    kept rows. Returns the max absolute error (0.0)."""
     from icp_tpu_torch.ops import scatter as SC
 
     err = 0.0
     for label, out, index, src, srt in cases:
-        want = out.clone().index_add_(0, index, src)
+        plan = card_plan(index, dev)
+        rows = index.index if plan is not None else index
+        want = out.clone().index_add_(0, rows, src)
         before = SC.segment_add_launches
-        got = SC.ordered_index_add_(out.to(dev), index.to(dev), src.to(dev),
-                                    sorted_index=srt)
+        got = SC.ordered_index_add_(out.to(dev),
+                                    plan if plan is not None else rows.to(dev),
+                                    src.to(dev), sorted_index=srt)
         torch.cuda.synchronize()
-        assert SC.segment_add_launches == before + (index.numel() > 0), label
+        assert SC.segment_add_launches == before + (rows.numel() > 0), label
         assert torch.equal(got.cpu(), want), \
             f"icp_segment_add not bit-equal to CPU index_add_: {label}"
+        kept = ""
+        if plan is not None:
+            k = index.keep
+            assert torch.equal(got.cpu(), out.clone().index_add_(
+                0, rows[k], src[k])), f"{label}: not index_add_ of the kept rows"
+            kept = f" ({int(k.sum())} kept, {int((~k).sum())} left out)"
         err = max(err, float((got.cpu() - want).abs().max()) if want.numel() else 0.0)
-        log(f"  icp_segment_add {label}: {index.numel()} rows x "
+        log(f"  icp_segment_add {label}: {rows.numel()} rows{kept} x "
             f"{src[0].numel() if len(src) else src.shape[-1]} into "
             f"{out.shape[0]} slots, {out.dtype}, "
-            f"{'sorted' if srt else 'unsorted'}: bit-equal to CPU index_add_")
+            f"{'plan' if plan is not None else 'sorted' if srt else 'unsorted'}"
+            f": bit-equal to CPU index_add_")
     return err
 
 
 def segment_bound(out, index, src):
     """(bound_ms, "bytes") of one ordered scatter-sum on this data: each
-    index and source value read once, each touched slot read and written
-    once, at PEAK_BYTES_S (one add a source value: never the bound)."""
+    added row's slot (8 bytes; 4 and a 4-byte permutation entry on a
+    plan) and values read once, each touched slot read and written once,
+    at PEAK_BYTES_S (one add a source value: never the bound). A plan's
+    left-out rows are not read."""
+    from icp_tpu_torch.ops import scatter as SC
+
     width = src[0].numel()
-    touched = int(torch.unique(index).numel())
-    b = (index.numel() * 8 + src.numel() * src.element_size()
+    if isinstance(index, SC.SegmentPlan):
+        rows = index.index if index.keep is None else index.index[index.keep]
+        per_row = 4 + 4
+    else:
+        rows, per_row = index, 8
+    touched = int(torch.unique(rows).numel())
+    b = (rows.numel() * (per_row + width * src.element_size())
          + 2 * touched * width * out.element_size())
     return 1e3 * b / PEAK_BYTES_S, "bytes"
 
 
+def empty_launch(lib, n_rows, width):
+    """icp_segment_add's grid for (n_rows, width), launched empty."""
+    with torch.cuda.device(torch.cuda.current_device()):
+        err = lib.icp_segment_add_empty(
+            n_rows, width, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"empty launch failed: cudaError {err}"
+
+
+# phase 5's shapes, as the paths call them: the voxel means on a sorted
+# index, the pose graph on plans built once a solve
+SEGMENT_TIMED = ("submap merge 30720 -> 4096", "scan voxels 768",
+                 "keyframe 131072 -> 8192", "plan: graph H 1024 nodes (width 1)",
+                 "plan: graph b (width 1)", "plan: PCG b (width 3)",
+                 "plan: PCG blocks (width 9)")
+
+
 def time_segment_add(dev, cases, card) -> dict:
     """Phase 5: icp_segment_add (through ordered_index_add_, as the paths
-    call it: the sort included where the index is unsorted) against CUDA
-    index_add_ (the library call: same sums, in no fixed order) at the
-    recorded shapes, by CUDA events and CUDA-graph replays, in turns; the
-    plain version (CPU index_add_) by the host clock; each beside its
+    call it: on a plan built once beforehand for the pose graph) against
+    CUDA index_add_ of every row (the library call: same sums, in no fixed
+    order) and an empty kernel at the same grid (the floor of one launch)
+    at the SEGMENT_TIMED shapes, by CUDA events and CUDA-graph replays, in
+    turns; a plan's build (the once-a-solve sort) on a line of its own;
+    the plain version (CPU index_add_) by the host clock; each beside its
     bytes bound."""
     from icp_tpu_torch.ops import scatter as SC
+    from icp_tpu_torch.ops.hopper.build import load
 
+    seg_lib = load("segment_add")
     timings = {}
     for label, out, index, src, srt in cases:
-        o, i, s = out.to(dev), index.to(dev), src.to(dev)
-        kern = lambda: SC.ordered_index_add_(o, i, s, sorted_index=srt)  # noqa: E731
+        if label not in SEGMENT_TIMED:
+            continue
+        plan = card_plan(index, dev)
+        rows = index.index if plan is not None else index
+        o, i, s = out.to(dev), rows.to(dev), src.to(dev)
+        arg = plan if plan is not None else i
+        kern = lambda: SC.ordered_index_add_(o, arg, s, sorted_index=srt)  # noqa: E731
         lib = lambda: o.index_add_(0, i, s)  # noqa: E731
+        n, w = rows.numel(), src[0].numel()
+        empty = lambda: empty_launch(seg_lib, n, w)  # noqa: E731
         bound_ms, bound_by = segment_bound(out, index, src)
         fig = {"bound_ms": bound_ms, "bound_by": bound_by,
-               "rows": index.numel(), "slots": out.shape[0],
-               "width": src[0].numel(), "dtype": str(out.dtype).split(".")[-1]}
+               "rows": n, "slots": out.shape[0], "width": w,
+               "dtype": str(out.dtype).split(".")[-1]}
+        if plan is not None:
+            fig["kept_rows"] = int(index.keep.sum())
         for measure, timer in (("", time_ms), ("device_", graph_ms)):
-            l1, k1, k2, l2 = timer(lib), timer(kern), timer(kern), timer(lib)
+            l1, k1, e1 = timer(lib), timer(kern), timer(empty)
+            e2, k2, l2 = timer(empty), timer(kern), timer(lib)
             fig[f"{measure}ms"] = (k1 + k2) / 2
             fig[f"library_{measure}ms"] = (l1 + l2) / 2
+            fig[f"empty_{measure}ms"] = (e1 + e2) / 2
         oc = out.clone()
         t0 = time.perf_counter()
         for _ in range(10):
-            oc.index_add_(0, index, src)
+            oc.index_add_(0, rows, src)
         fig["plain_ms"] = 1e3 * (time.perf_counter() - t0) / 10
         fig["bound_share"] = bound_ms / fig["device_ms"]
         log(f"icp_segment_add {label}: kernel {1e3 * fig['ms']:.2f} us (events) / "
             f"{1e3 * fig['device_ms']:.2f} us (device only), CUDA index_add_ "
             f"{1e3 * fig['library_ms']:.2f} / {1e3 * fig['library_device_ms']:.2f} us, "
+            f"empty launch {1e3 * fig['empty_ms']:.2f} / "
+            f"{1e3 * fig['empty_device_ms']:.2f} us, "
             f"plain (CPU index_add_, host clock) {1e3 * fig['plain_ms']:.1f} us; "
             f"bound {1e3 * bound_ms:.3f} us ({bound_by}), device time "
             f"{100 * fig['bound_share']:.1f} % of it, on {card}")
+        if plan is not None:
+            keep_d = index.keep.to(dev)
+            build = lambda: SC.segment_plan(i, index.n_slots, keep=keep_d)  # noqa: E731
+            fig["plan_ms"] = time_ms(build)
+            try:
+                fig["plan_device_ms"] = graph_ms(build)
+            except RuntimeError as exc:          # a sort the graph refuses
+                fig["plan_device_ms"] = None
+                log(f"  (plan build not capturable in a CUDA graph: {exc})")
+            dev_ms = fig["plan_device_ms"]
+            log(f"icp_segment_add {label}: plan build (once a solve: sort of "
+                f"{n} 32-bit keys, {n - fig['kept_rows']} left out) "
+                f"{1e3 * fig['plan_ms']:.2f} us (events) / "
+                f"{'not measured' if dev_ms is None else f'{1e3 * dev_ms:.2f} us'}"
+                f" (device only), on {card}")
         timings[label] = fig
     return timings
 
@@ -802,6 +931,7 @@ def time_pose_graph(dev, card) -> dict:
     size, forced through the dense or the PCG route by the node threshold.
     Printed only: the data for the 2000-node switch."""
     from icp_tpu_torch.models.pose_graph import PoseGraph2D
+    from icp_tpu_torch.ops import scatter as SC
 
     _chain_with_closures(PoseGraph2D(dev), 256).optimize(n_iterations=2)
     out = {}
@@ -811,15 +941,26 @@ def time_pose_graph(dev, card) -> dict:
             pg = _chain_with_closures(PoseGraph2D(dev), n)
             pg._cg_node_threshold = 10**9 if strategy == "dense" else 2
             torch.cuda.synchronize()
+            builds = SC.segment_plan_builds
             t0 = time.perf_counter()
             pg.optimize(n_iterations=30)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
+            builds = SC.segment_plan_builds - builds
             assert pg.last_strategy == strategy, pg.last_strategy
+            # a solve sorts once: H and b (dense) or [ei, ej] (PCG); an LM
+            # retry is a solve of its own
+            per = 2 if strategy == "dense" else 1
+            assert (builds == per if "+" not in pg.last_strategy
+                    else builds % per == 0), (builds, pg.last_strategy)
             nodes[strategy] = np.stack(pg.nodes)
             out[f"{strategy}_{n}"] = ms
+            out[f"{strategy}_{n}_iterations"] = pg.last_iterations
+            out[f"{strategy}_{n}_plan_builds"] = builds
             log(f"pose graph {n} nodes, {strategy}: optimize {ms:.1f} ms "
-                f"(30 iterations max), chi2 {pg.total_error():.4g} on {card}")
+                f"({pg.last_iterations} GN iterations of 30 max, "
+                f"{builds} segment plans built), chi2 "
+                f"{pg.total_error():.4g} on {card}")
         gap = float(np.abs(nodes["dense"][:, :2] - nodes["cg"][:, :2]).max())
         log(f"pose graph {n} nodes: max |dense - cg| position {gap:.3g} m")
     return out

@@ -6,11 +6,12 @@ The graph grows on the host (lists of nodes and edges); ``optimize`` packs
 it into power-of-two capacity buckets and solves on ``device``:
 
 * errors and Jacobians of all edges are one batched computation;
-* the dense 3n x 3n normal matrix is assembled with scatter-adds and solved
-  with ``torch.linalg.solve_ex`` (icp_tpu's ``jnp.linalg.solve``). icp_tpu
-  runs the GN iterations as one ``lax.while_loop``; here the loop runs on
-  the host and reads the stop flag once per iteration, so it stops where
-  the while-loop stops;
+* the dense 3n x 3n normal matrix is assembled with ordered scatter-sums
+  (``ops.scatter``, on segment plans sorted once a solve, padded edges
+  left out) and solved with ``torch.linalg.solve_ex`` (icp_tpu's
+  ``jnp.linalg.solve``). icp_tpu runs the GN iterations as one
+  ``lax.while_loop``; here the loop runs on the host and reads the stop
+  flag once per iteration, so it stops where the while-loop stops;
 * past ``_cg_node_threshold`` nodes the matrix-free block-Jacobi PCG of
   ``parallel.dist_pose_graph`` replaces the dense solve, and past
   ``_coarse_threshold`` a coarse supernode solve initialises it;
@@ -27,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from icp_tpu_torch.ops.scatter import ordered_index_add_
+from icp_tpu_torch.ops.scatter import ordered_index_add_, segment_plan
 from icp_tpu_torch.utils.masking import next_pow2
 from icp_tpu_torch.utils.se2 import pose_to_vec_np, vec_to_pose_np, wrap_angle
 
@@ -88,26 +89,42 @@ def _block_products(e, A, B, omega, edge_mask):
     return Hii, Hij, Hji, Hjj, bi, bj
 
 
-def _scatter_dense(n, ei, ej, Hii, Hij, Hji, Hjj, bi, bj):
-    """Assemble the dense (3n, 3n) H and (3n,) b from per-edge blocks."""
-    dev, dt = Hii.device, Hii.dtype
-    r = torch.arange(3, device=dev)
+def _dense_plans(n, ei, ej, edge_mask):
+    """Segment plans of the dense H (9 n^2 slots) and b (3 n slots) of the
+    edges (ei, ej), built once a solve (the indices do not change between
+    GN iterations): H's rows are the four blocks' entries in the order
+    Hii, Hij, Hji, Hjj, b's the bi then bj entries. Masked (padded) edges'
+    rows are left out: their information matrix is 0, so every value they
+    carry is +-0, and the sums keep their bits without them."""
+    r = torch.arange(3, device=ei.device)
     ri = 3 * ei[:, None] + r[None, :]                  # (E, 3)
     rj = 3 * ej[:, None] + r[None, :]
 
     def flat(rows, cols):                              # (E, 3, 3) into H
         return (rows[:, :, None] * (3 * n) + cols[:, None, :]).reshape(-1)
 
+    kept = edge_mask != 0
+    return (segment_plan(
+                torch.cat([flat(ri, ri), flat(ri, rj), flat(rj, ri),
+                           flat(rj, rj)]), 9 * n * n,
+                keep=kept.repeat_interleave(9).repeat(4)),
+            segment_plan(torch.cat([ri.reshape(-1), rj.reshape(-1)]), 3 * n,
+                         keep=kept.repeat_interleave(3).repeat(2)))
+
+
+def _scatter_dense(n, plans, Hii, Hij, Hji, Hjj, bi, bj):
+    """Assemble the dense (3n, 3n) H and (3n,) b from per-edge blocks, on
+    ``plans = _dense_plans(n, ...)``."""
+    dev, dt = Hii.device, Hii.dtype
+    plan_h, plan_b = plans
     # one ordered scatter-sum each for H and b, the blocks concatenated:
     # the same bits as one index_add_ a block, in this order, on the CPU
     H = torch.zeros(9 * n * n, dtype=dt, device=dev)
-    ordered_index_add_(
-        H, torch.cat([flat(ri, ri), flat(ri, rj), flat(rj, ri), flat(rj, rj)]),
-        torch.cat([Hii.reshape(-1), Hij.reshape(-1), Hji.reshape(-1),
-                   Hjj.reshape(-1)]))
+    ordered_index_add_(H, plan_h, torch.cat([Hii.reshape(-1), Hij.reshape(-1),
+                                             Hji.reshape(-1),
+                                             Hjj.reshape(-1)]))
     b = torch.zeros(3 * n, dtype=dt, device=dev)
-    ordered_index_add_(b, torch.cat([ri.reshape(-1), rj.reshape(-1)]),
-                       torch.cat([bi.reshape(-1), bj.reshape(-1)]))
+    ordered_index_add_(b, plan_b, torch.cat([bi.reshape(-1), bj.reshape(-1)]))
     return H.view(3 * n, 3 * n), b
 
 
@@ -133,13 +150,14 @@ def optimize_dense(nodes, node_mask, ei, ej, z, omega, edge_mask,
                 + torch.where(torch.repeat_interleave(~node_mask, 3), 1.0, 0.0)
                 ).to(nodes.dtype)
     cross = anchor_rows[:, None] | anchor_rows[None, :]
+    plans = _dense_plans(n, ei, ej, edge_mask)
 
     cur = nodes
     it = 0
     while it < n_iterations:
         e, A, B = edge_terms(cur, ei, ej, z, omega, edge_mask)
         om_eff = robust_omega(e, omega, robust_mask, robust_phi)
-        H, b = _scatter_dense(n, ei, ej,
+        H, b = _scatter_dense(n, plans,
                               *_block_products(e, A, B, om_eff, edge_mask))
         # anchor: zero row/col, big diagonal (pose_graph.py:109-114)
         H = torch.where(cross, 0.0, H) + torch.diag(diag_add)
@@ -208,6 +226,8 @@ class PoseGraph2D:
         self._dist_threshold = 1024
         # "dense" | "cg" | "schur" | "dist_cg" (+ guard suffix)
         self.last_strategy = None
+        # GN iterations the last optimize ran, its LM retries included
+        self.last_iterations = 0
 
     def set_mesh(self, mesh, node_threshold: int = 1024):
         """Solve graphs of ``node_threshold`` nodes and more by the exact
@@ -303,6 +323,7 @@ class PoseGraph2D:
         descends never sees damping."""
         if self.n_nodes < 2 or self.n_edges == 0:
             return
+        self.last_iterations = 0
         before = self.total_error()
         snapshot = [v.copy() for v in self._nodes]
         self._optimize_inner(n_iterations, fix_node, convergence_eps)
@@ -350,10 +371,11 @@ class PoseGraph2D:
                                      convergence_eps, damping=damping)
         self.last_strategy = "dense"
         nodes, nm, ei, ej, z, om, em, rb = self._packed_device()
-        out, _ = optimize_dense(
+        out, it = optimize_dense(
             nodes, nm, ei, ej, z, om, em, int(fix_node), rb,
             float(self.robust_phi), float(damping),
             n_iterations=int(n_iterations), convergence_eps=convergence_eps)
+        self.last_iterations += it
         self._store(out)
 
     def _coarse_correct(self, fix_node: int, stride: int):
@@ -470,11 +492,12 @@ class PoseGraph2D:
             self._coarse_correct(int(fix_node), max(2, self.n_nodes // 1000))
         self.last_strategy = "cg" if mesh.size == 1 else "dist_cg"
         nodes, nm, ei, ej, z, om, em, rb = self._packed_device()
-        out, _ = optimize_cg(
+        out, it = optimize_cg(
             mesh, nodes, nm, ei, ej, z, om, em, int(fix_node),
             n_iterations=int(n_iterations), convergence_eps=convergence_eps,
             robust_mask=rb, robust_phi=float(self.robust_phi),
             damping=float(damping))
+        self.last_iterations += it
         self._store(out)
 
     def _optimize_distributed(self, n_iterations, fix_node, convergence_eps,
@@ -499,11 +522,12 @@ class PoseGraph2D:
                                      damping=damping)
         self.last_strategy = "schur"
         d0 = self._mesh.devices[0]
-        out, _ = optimize_schur(
+        out, it = optimize_schur(
             self._mesh, torch.as_tensor(nodes, device=d0),
             torch.as_tensor(nm, device=d0), part,
             n_iterations=int(n_iterations), convergence_eps=convergence_eps,
             robust_phi=float(self.robust_phi), damping=float(damping))
+        self.last_iterations += it
         self._store(out)
 
     # ── accessors ────────────────────────────────────────────────────────

@@ -2,7 +2,8 @@
 
 Each source under ``icp_tpu_torch/csrc/`` is its own library:
 ``nn_kernel.cu`` (``icp_nn``, ``icp_nn_min``) and ``segment_add.cu``
-(``icp_segment_add``). ``load(name)`` compiles one with nvcc into
+(``icp_segment_add``, and ``icp_segment_add_empty``, an empty kernel at
+its grid, for timing). ``load(name)`` compiles one with nvcc into
 ``icp_tpu_torch/build/`` at first use and loads it with ctypes;
 ``load_all()`` starts one nvcc a missing library, all at once, and loads
 every library. A library's name carries a hash of its source and the
@@ -92,8 +93,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.icp_nn_min.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
         lib.icp_nn_min.restype = ci
     else:
-        lib.icp_segment_add.argtypes = [vp, vp, vp, vp, cll, ci, cll, ci, vp]
+        lib.icp_segment_add.argtypes = [vp, vp, vp, vp, cll, ci, cll, ci, ci,
+                                        vp]
         lib.icp_segment_add.restype = ci
+        lib.icp_segment_add_empty.argtypes = [cll, ci, vp]
+        lib.icp_segment_add_empty.restype = ci
 
 
 def load(name: str = "nn") -> ctypes.CDLL:

@@ -18,7 +18,11 @@ the mesh's shards and per-shard partial sums combine with ``Mesh.psum``:
 
 A sharded step loops over the local shards, queues each shard's work on
 its device, then reduces; the replicated solves run once, on the mesh's
-first device. Results match icp_tpu's to f32 rounding (psum sums in shard
+first device. Every scatter-sum runs on a segment plan of the shard's
+edges (``ops.scatter.segment_plan``, padded edges left out) that a solve
+builds once: ``optimize_cg`` and ``optimize_schur`` build them before
+their first step (``cg_plans``, ``schur_shards``), a step called alone
+builds its own. Results match icp_tpu's to f32 rounding (psum sums in shard
 order, XLA in its own). icp_tpu's ``_schur_step_cached`` and
 ``_cg_step_cached`` are jit caches and have no counterpart: the port runs
 eagerly.
@@ -31,9 +35,10 @@ import numpy as np
 import torch
 
 from icp_tpu_torch.models.pose_graph import (ANCHOR_WEIGHT, _block_products,
-                                             _scatter_dense, edge_terms,
-                                             robust_omega)
-from icp_tpu_torch.ops.scatter import ordered_index_add_
+                                             _dense_plans, _scatter_dense,
+                                             edge_terms, robust_omega)
+from icp_tpu_torch.ops.scatter import (SegmentPlan, ordered_index_add_,
+                                      segment_plan)
 from icp_tpu_torch.parallel.mesh import Mesh
 from icp_tpu_torch.utils.se2 import wrap_angle
 
@@ -84,7 +89,7 @@ def gn_step_sharded(mesh: Mesh, nodes, node_mask, ei, ej, z, omega,
             mesh.devices, _edge_shards(mesh, ei, ej, z, omega, edge_mask)):
         nd = nodes.to(dev)
         e, A, B = edge_terms(nd, lei, lej, lz, lom, lem)
-        H, b = _scatter_dense(n, lei, lej,
+        H, b = _scatter_dense(n, _dense_plans(n, lei, lej, lem),
                               *_block_products(e, A, B, lom, lem))
         Hs.append(H)
         bs.append(b)
@@ -102,47 +107,56 @@ def gn_step_sharded(mesh: Mesh, nodes, node_mask, ei, ej, z, omega,
     return _apply_update(nd, nm, dx)
 
 
+def cg_plans(mesh: Mesh, n: int, ei, ej, edge_mask):
+    """Per local shard, the segment plan of ``gn_step_cg_sharded``'s adds:
+    each goes to the nodes i then j of every edge ([ei, ej], n slots), so
+    the ordered sums give the bits of an index_add_ at ei followed by one
+    at ej. Masked (padded) edges are left out. Built once a solve."""
+    return [segment_plan(torch.cat([lei, lej]), n,
+                         keep=torch.cat([lem, lem]) != 0)
+            for lei, lej, lem in _edge_shards(mesh, ei, ej, edge_mask)]
+
+
 def gn_step_cg_sharded(mesh: Mesh, nodes, node_mask, ei, ej, z, omega,
                        edge_mask, fix_node, robust_mask=None,
                        robust_phi=1.0, damping=0.0, *, axis: str = "d",
-                       cg_iters: int = 50, cg_tol=1e-8):
+                       cg_iters: int = 50, cg_tol=1e-8, plans=None):
     """One matrix-free GN step: ``cg_iters`` iterations (a fixed count, as
     icp_tpu's ``lax.scan``; ``cg_tol`` is accepted and unused there too) of
     block-Jacobi preconditioned CG over psum-combined edge shards.
     ``robust_mask`` flags edges for DCS reweighting; ``damping`` > 0 is the
     Levenberg-Marquardt scaling (H + damping diag(H)), applied inside Hx
-    and to the preconditioner blocks. Returns the updated nodes on the
-    mesh's first device."""
+    and to the preconditioner blocks. ``plans``: ``cg_plans`` of these
+    edges (built here if None). Returns the updated nodes on the mesh's
+    first device."""
     del axis, cg_tol
     n = nodes.shape[0]
     d0 = mesh.devices[0]
     if robust_mask is None:
         robust_mask = torch.zeros(ei.shape[0], dtype=torch.bool,
                                   device=ei.device)
-    shards = []            # per shard: (ei, ej, A, B, om)
+    if plans is None:
+        plans = cg_plans(mesh, n, ei, ej, edge_mask)
+    shards = []            # per shard: (ei, ej, A, B, om, plan)
     bs, Ds = [], []
-    for dev, (lei, lej, lz, lom, lem, lrb) in zip(
-            mesh.devices, _edge_shards(mesh, ei, ej, z, omega, edge_mask,
-                                       robust_mask)):
+    for dev, plan, (lei, lej, lz, lom, lem, lrb) in zip(
+            mesh.devices, plans, _edge_shards(mesh, ei, ej, z, omega,
+                                              edge_mask, robust_mask)):
         nd = nodes.to(dev)
         e, A, B = edge_terms(nd, lei, lej, lz, lom, lem)
         om = robust_omega(e, lom, lrb, robust_phi)
         om = om * lem.to(nd.dtype)[:, None, None]
         AtO = torch.einsum("eij,eik->ejk", A, om)
         BtO = torch.einsum("eij,eik->ejk", B, om)
-        # every add below goes to the nodes i then j of each edge: sort
-        # [ei, ej] once; the ordered sums give the bits of an index_add_
-        # at ei followed by one at ej
-        sidx, perm = torch.sort(torch.cat([lei, lej]), stable=True)
         b = torch.zeros((n, 3), dtype=nd.dtype, device=dev)
-        ordered_index_add_(b, sidx, torch.cat([
+        ordered_index_add_(b, plan, torch.cat([
             torch.einsum("ejk,ek->ej", AtO, e),
-            torch.einsum("ejk,ek->ej", BtO, e)])[perm], sorted_index=True)
+            torch.einsum("ejk,ek->ej", BtO, e)]))
         Dblk = torch.zeros((n, 3, 3), dtype=nd.dtype, device=dev)
-        ordered_index_add_(Dblk, sidx, torch.cat([
+        ordered_index_add_(Dblk, plan, torch.cat([
             torch.einsum("ejk,ekl->ejl", AtO, A),
-            torch.einsum("ejk,ekl->ejl", BtO, B)])[perm], sorted_index=True)
-        shards.append((lei, lej, A, B, om, sidx, perm))
+            torch.einsum("ejk,ekl->ejl", BtO, B)]))
+        shards.append((lei, lej, A, B, om, plan))
         bs.append(b)
         Ds.append(Dblk)
 
@@ -160,15 +174,14 @@ def gn_step_cg_sharded(mesh: Mesh, nodes, node_mask, ei, ej, z, omega,
         # per edge s = A x_i + B x_j; y_i += A^T om s, y_j += B^T om s
         xp = torch.where(freec, x, 0.0)
         ys = []
-        for xs, (lei, lej, A, B, om, sidx, perm) in zip(mesh.replicate(xp),
-                                                        shards):
+        for xs, (lei, lej, A, B, om, plan) in zip(mesh.replicate(xp), shards):
             s = (torch.einsum("ejk,ek->ej", A, xs[lei])
                  + torch.einsum("ejk,ek->ej", B, xs[lej]))
             oms = torch.einsum("ejk,ek->ej", om, s)
             y = torch.zeros_like(xs)
-            ordered_index_add_(y, sidx, torch.cat([
+            ordered_index_add_(y, plan, torch.cat([
                 torch.einsum("ekj,ek->ej", A, oms),
-                torch.einsum("ekj,ek->ej", B, oms)])[perm], sorted_index=True)
+                torch.einsum("ekj,ek->ej", B, oms)]))
             ys.append(y)
         y = mesh.psum(ys)[0] + damping * dvec * xp   # (H + damping diag(H)) x
         return torch.where(freec, y, 0.0)
@@ -308,17 +321,56 @@ def partition_graph(n: int, ei, ej, z, omega, edge_mask, n_dev: int,
                           int(sep_pos[fix_node]))
 
 
+class SchurShard(NamedTuple):
+    """One local shard's part of a ``SchurPartition`` on its device, with
+    the segment plans of its adds (``schur_shards``)."""
+    int_ids: torch.Tensor
+    int_valid: torch.Tensor
+    lei: torch.Tensor
+    lej: torch.Tensor
+    z: torch.Tensor
+    omega: torch.Tensor
+    edge_mask: torch.Tensor
+    robust: torch.Tensor
+    dense_plans: tuple          # H and b over the local ids (_dense_plans)
+    dx_plan: SegmentPlan        # the back-substitution: int_valid's rows
+
+
+def schur_shards(mesh: Mesh, part: SchurPartition,
+                 n: int) -> list[SchurShard]:
+    """``part``'s arrays (of an n-node graph) on each local shard's device
+    and the plans of its scatter-sums, built once a solve. Padded edges
+    sit at local id 0 with ``edge_mask`` False, and padded interior slots
+    at id n with ``int_valid`` False: both are left out."""
+    i64 = torch.int64
+    nl = part.int_ids.shape[1] + len(part.sep_ids)
+    out = []
+    for j, dev in enumerate(mesh.devices):
+        g = mesh.axis_index(j)
+        t = lambda a, dt=None: torch.as_tensor(a[g], dtype=dt,  # noqa: E731
+                                               device=dev)
+        int_ids, int_valid = t(part.int_ids, i64), t(part.int_valid)
+        lem = t(part.edge_mask)
+        out.append(SchurShard(
+            int_ids, int_valid, t(part.lei, i64), t(part.lej, i64),
+            t(part.z), t(part.omega), lem, t(part.robust),
+            _dense_plans(nl, t(part.lei_loc, i64), t(part.lej_loc, i64), lem),
+            segment_plan(int_ids, n + 1, keep=int_valid)))
+    return out
+
+
 def gn_step_schur_sharded(mesh: Mesh, nodes, node_mask,
                           part: SchurPartition, robust_phi=1.0,
-                          damping=0.0, *, axis: str = "d"):
+                          damping=0.0, *, axis: str = "d", shards=None):
     """One exact GN step by distributed Schur-complement reduction.
 
     Per shard: assemble the local (interior + separator) normal equations
     from its edge bucket, factor H_II once against [H_IS | b_I] (back-
     substitution is then a product, not a second solve); psum the reduced
     separator system S and its rhs r; solve it once; back-substitute.
-    ``part`` must be partitioned for ``mesh.size`` shards. Returns the
-    updated nodes on the mesh's first device."""
+    ``part`` must be partitioned for ``mesh.size`` shards; ``shards``:
+    ``schur_shards(mesh, part, N)`` (built here if None). Returns the updated
+    nodes on the mesh's first device."""
     del axis
     if part.int_ids.shape[0] != mesh.size:
         raise ValueError(f"partition for {part.int_ids.shape[0]} shards, "
@@ -332,22 +384,18 @@ def gn_step_schur_sharded(mesh: Mesh, nodes, node_mask,
     i64 = torch.int64
     sep_ids = torch.as_tensor(part.sep_ids, dtype=i64, device=d0)
     sep_valid = torch.as_tensor(part.sep_valid, device=d0)
+    if shards is None:
+        shards = schur_shards(mesh, part, n)
 
     local, Ss, rs = [], [], []
-    for j, dev in enumerate(mesh.devices):
-        g = mesh.axis_index(j)
-        t = lambda a, dt=None: torch.as_tensor(a[g], dtype=dt,  # noqa: E731
-                                               device=dev)
-        int_ids, int_valid = t(part.int_ids, i64), t(part.int_valid)
-        lei, lej = t(part.lei, i64), t(part.lej, i64)
-        lei_loc, lej_loc = t(part.lei_loc, i64), t(part.lej_loc, i64)
-        lz, lom, lem, lrb = (t(part.z), t(part.omega), t(part.edge_mask),
-                             t(part.robust))
+    for dev, sh in zip(mesh.devices, shards):
+        int_ids, int_valid = sh.int_ids, sh.int_valid
+        lem = sh.edge_mask
         nd, nm = nodes.to(dev), node_mask.to(dev)
 
-        e, A, B = edge_terms(nd, lei, lej, lz, lom, lem)
-        lom = robust_omega(e, lom, lrb, robust_phi)
-        H, b = _scatter_dense(nl, lei_loc, lej_loc,
+        e, A, B = edge_terms(nd, sh.lei, sh.lej, sh.z, sh.omega, lem)
+        lom = robust_omega(e, sh.omega, sh.robust, robust_phi)
+        H, b = _scatter_dense(nl, sh.dense_plans,
                               *_block_products(e, A, B, lom, lem))
         # padded slots and invalid nodes get an identity diagonal (their
         # rhs is zero, so their dx is zero)
@@ -368,7 +416,7 @@ def gn_step_schur_sharded(mesh: Mesh, nodes, node_mask,
         X_IS, x_b = X[:, :-1], X[:, -1]
         Ss.append(H_SS - H_IS.T @ X_IS)
         rs.append(b_S - H_IS.T @ x_b)
-        local.append((int_ids, int_valid, X_IS, x_b))
+        local.append((sh.dx_plan, X_IS, x_b))
     S, r = mesh.psum(Ss)[0], mesh.psum(rs)[0]
 
     # anchor clamp on the reduced system (reference pose_graph.py:109-114)
@@ -386,12 +434,12 @@ def gn_step_schur_sharded(mesh: Mesh, nodes, node_mask,
     dx_S = _solve(S, -r)
 
     parts = []
-    for dev, dxs, (int_ids, int_valid, X_IS, x_b) in zip(
+    for dev, dxs, (dx_plan, X_IS, x_b) in zip(
             mesh.devices, mesh.replicate(dx_S), local):
         dx_I = -(X_IS @ dxs + x_b)            # = H_II^-1 (-b_I - H_IS dx_S)
+        # padded interior slots (id n, cut off below) are left out
         dx = torch.zeros((n + 1, 3), dtype=dx_I.dtype, device=dev)
-        ordered_index_add_(dx, int_ids,
-                           dx_I.reshape(i_cap, 3) * int_valid[:, None])
+        ordered_index_add_(dx, dx_plan, dx_I.reshape(i_cap, 3))
         parts.append(dx)
     dx = mesh.psum(parts)[0]
     dx[uid] = dx_S.reshape(s, 3)
@@ -457,10 +505,11 @@ def optimize_cg(mesh: Mesh, nodes, node_mask, ei, ej, z, omega, edge_mask,
     ei, ej, z, omega, edge_mask, robust_mask = _pad_edges(
         mesh, ei, ej, z, omega, edge_mask, robust_mask)
     nm = node_mask.to(mesh.devices[0])
+    plans = cg_plans(mesh, nodes.shape[0], ei, ej, edge_mask)
     return _converge(
         lambda nd: gn_step_cg_sharded(
             mesh, nd, nm, ei, ej, z, omega, edge_mask, fix_node, robust_mask,
-            robust_phi, damping, cg_iters=cg_iters),
+            robust_phi, damping, cg_iters=cg_iters, plans=plans),
         nodes.to(mesh.devices[0]), nm, n_iterations, convergence_eps)
 
 
@@ -469,12 +518,13 @@ def optimize_schur(mesh: Mesh, nodes, node_mask, part: SchurPartition, *,
                    axis: str = "d", robust_phi: float = 1.0,
                    damping: float = 0.0):
     """Full Gauss-Newton through ``gn_step_schur_sharded``. The partition
-    depends only on the graph's topology, so one ``partition_graph`` serves
-    every iteration. Stops as ``optimize_cg``. Returns (nodes, iterations
-    run)."""
+    depends only on the graph's topology, so one ``partition_graph`` and
+    one ``schur_shards`` serve every iteration. Stops as ``optimize_cg``.
+    Returns (nodes, iterations run)."""
     del axis
     nm = node_mask.to(mesh.devices[0])
+    shards = schur_shards(mesh, part, nodes.shape[0])
     return _converge(
         lambda nd: gn_step_schur_sharded(mesh, nd, nm, part, robust_phi,
-                                         damping),
+                                         damping, shards=shards),
         nodes.to(mesh.devices[0]), nm, n_iterations, convergence_eps)

@@ -807,11 +807,12 @@ class ScaledPipeline:
         """Seconds a GN step on the current graph takes, the first call
         excluded, by the strategy ``PoseGraph2D.optimize`` would take on
         the mesh (``schur_within_limits``): the Schur step, else the PCG
-        step (``gn_step_strategy`` says which). The host's partition time
-        goes into ``stats.partition_wall``."""
+        step (``gn_step_strategy`` says which), as a solve runs it: its
+        segment plans built once, outside the timed steps. The host's
+        partition time goes into ``stats.partition_wall``."""
         from icp_tpu_torch.parallel.dist_pose_graph import (
-            _pad_edges, gn_step_cg_sharded, gn_step_schur_sharded,
-            partition_graph, schur_within_limits)
+            _pad_edges, cg_plans, gn_step_cg_sharded, gn_step_schur_sharded,
+            partition_graph, schur_shards, schur_within_limits)
         self.finish()
         pg = self.pose_graph
         nodes, node_mask, ei, ej, z, om, em, rb = pg._packed()
@@ -828,16 +829,19 @@ class ScaledPipeline:
             self.gn_step_strategy = "cg"
             ei_, ej_, z_, om_, em_, rb_ = _pad_edges(
                 self.mesh, *pg._packed_device()[2:])
+            plans = cg_plans(self.mesh, nd.shape[0], ei_, ej_, em_)
 
             def fn():
                 return gn_step_cg_sharded(self.mesh, nd, nm, ei_, ej_, z_,
                                           om_, em_, 0, rb_, rphi,
-                                          cg_iters=100)
+                                          cg_iters=100, plans=plans)
         else:
             self.gn_step_strategy = "schur"
+            shards = schur_shards(self.mesh, part, nd.shape[0])
 
             def fn():
-                return gn_step_schur_sharded(self.mesh, nd, nm, part, rphi)
+                return gn_step_schur_sharded(self.mesh, nd, nm, part, rphi,
+                                             shards=shards)
         fn().cpu()                           # first call, synchronized
         t0 = time.perf_counter()
         for _ in range(reps):

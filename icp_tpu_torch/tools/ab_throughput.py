@@ -6,13 +6,17 @@ TREE is the root of a checkout (this repository, or an earlier commit
 unpacked with ``git archive``); its ``chip_smoke.py`` and
 ``icp_tpu_torch`` are imported, so the same script times either. It runs
 chip_smoke.py's main path (the 200 x 720 bench sequence through
-``SlamEngine``, bench.py's configuration) twice, cold then warm, and its
-phase 12 (the scaled pipeline at full width, 400 scans, the terminal BA),
-and prints one JSON line: scans/s of the warm main-path pass and of
-config #5 after 3 warm scans, both ATEs, the largest pose difference
-between the two main-path passes, and the card with its power limit. Run
-it as a file, not with ``-m``: the package must come from TREE. Compare
-two checkouts only within one call on one card, in turns (A, B, B, A).
+``SlamEngine``, bench.py's configuration) twice, cold then warm, its
+loop-closure pass (phase 6), phase 7's pose-graph solves at 1,024 nodes
+(dense and PCG, 30 GN iterations) and its phase 12 (the scaled pipeline
+at full width, 400 scans, the terminal BA) with ``time_gn_step`` on its
+graph (Schur and PCG, one shard), and prints one JSON line: scans/s of the
+warm main-path pass and of config #5 after 3 warm scans, both ATEs, the
+largest pose difference between the two main-path passes, the loop-closure
+pass's ``wall_lc_apply`` and ATE, the solves' ms, the GN steps' ms, and the
+card with its power limit. Run it as a file, not with ``-m``: the package
+must come from TREE. Compare two checkouts only within one call on one
+card, in turns (A, B, B, A).
 """
 import json
 import os
@@ -30,6 +34,7 @@ def main(argv=None):
     import torch
 
     import chip_smoke as C
+    from icp_tpu_torch.models.pose_graph import PoseGraph2D
     from icp_tpu_torch.utils.config import SlamConfig
     from icp_tpu_torch.utils.metrics import ate
 
@@ -45,15 +50,40 @@ def main(argv=None):
         t1, t2 = np.stack(e1.pose_trajectory), np.stack(e2.pose_trajectory)
         ate_m = ate(t2[:, :2, 2], gt, indices=e2.pose_scan_indices)
         spread = float(np.abs(t1 - t2).max()) if t1.shape == t2.shape else None
+        lc_cfg = SlamConfig.from_dict(dict(C.BENCH_CFG,
+                                           loop_closure=C.LC_SECTION))
+        lc_cfg.num_scans = len(scans)
+        e_lc, _ = C.run_engine(lc_cfg, imu, scans, rels, dev, warmup=True)
+        ate_lc = ate(np.stack(e_lc.pose_trajectory)[:, :2, 2], gt,
+                     indices=e_lc.pose_scan_indices)
+        solve_ms = {}
+        for strategy in ("dense", "cg"):
+            pg = C._chain_with_closures(PoseGraph2D(dev), 1024)
+            pg._cg_node_threshold = 10**9 if strategy == "dense" else 2
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            pg.optimize(n_iterations=30)
+            torch.cuda.synchronize()
+            solve_ms[strategy] = 1e3 * (time.perf_counter() - ts)
         pipe, g, sps = C.run_scaled(dev)
+        gn_ms = {"schur": 1e3 * pipe.time_gn_step(reps=5)}
+        limit, pipe.pose_graph._max_separators = \
+            pipe.pose_graph._max_separators, 0
+        gn_ms["cg"] = 1e3 * pipe.time_gn_step(reps=5)
+        pipe.pose_graph._max_separators = limit
         pipe.optimize(n_iterations=15)
         ate_s = ate(np.stack(pipe.trajectory), g, gt_offset=0)
     print(json.dumps({"label": label, "card": C.gpu_line(),
                       "main_sps_warm": (len(scans) - 1) / w2,
                       "main_sps_cold": (len(scans) - 1) / w1, "main_ate": ate_m,
-                      "main_two_pass_max_abs": spread, "scaled_sps": sps,
-                      "scaled_ate": ate_s, "wall": time.perf_counter() - t0}),
-          flush=True)
+                      "main_two_pass_max_abs": spread,
+                      "lc_wall_lc_apply": e_lc.stats.wall_lc_apply,
+                      "lc_ate": ate_lc, "lc_closures": e_lc.stats.loop_closures,
+                      "optimize_1024_ms": solve_ms,
+                      "time_gn_step_ms": gn_ms,
+                      "gn_nodes": pipe.pose_graph.n_nodes,
+                      "scaled_sps": sps, "scaled_ate": ate_s,
+                      "wall": time.perf_counter() - t0}), flush=True)
 
 
 if __name__ == "__main__":

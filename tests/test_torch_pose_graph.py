@@ -310,3 +310,105 @@ def test_graph_accessors_and_guards():
     gt.set_mesh(Mesh(("cpu",)), node_threshold=2)
     gt.optimize()
     assert gt.last_strategy == "dense"
+
+
+# ── segment plans: padded edges left out, one sort a solve ──────────────
+def _every_row(out, index, src, **kw):
+    """The assembly as it was before plans: index_add_ of every row,
+    padded edges included (CPU ordered_index_add_ is index_add_)."""
+    from icp_tpu_torch.ops.scatter import SegmentPlan
+
+    if isinstance(index, SegmentPlan):
+        index = index.index
+    return out.index_add_(0, index, src)
+
+
+def _closure_chain_1024(dtype):
+    """A 1,024-node chain with three long closures and one every 16 nodes:
+    1,090 edges in 2,048 slots, so 958 padded edges at node 0."""
+    n = 1024
+    closures = [(0, n // 2), (106, 640), (213, 853)]
+    closures += [(i, (i + 16) % n) for i in range(0, n, 16)]
+    g = _chain_with_closures(T.PoseGraph2D("cpu"), n=n, closures=closures)
+    nodes, nm, ei, ej, z, om, em, rb = g._packed_device()
+    assert int(em.sum()) == 1090 and em.shape[0] == 2048
+    return nodes.to(dtype), nm, ei, ej, z.to(dtype), om.to(dtype), em, rb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_scatter_dense_plans_drop_padding_bit_equal(monkeypatch, dtype):
+    """_scatter_dense on plans that leave the padded edges out gives the
+    bits of the every-row assembly on the 1,024-node chain, and so do two
+    GN iterations of optimize_dense."""
+    nodes, nm, ei, ej, z, om, em, rb = _closure_chain_1024(dtype)
+    n = nodes.shape[0]
+    plans = T._dense_plans(n, ei, ej, em)
+    assert int(plans[0].keep.sum()) == 36 * 1090
+    e, A, B = T.edge_terms(nodes, ei, ej, z, om, em)
+    blocks = T._block_products(e, A, B, T.robust_omega(e, om, rb, 1.0), em)
+    H, b = T._scatter_dense(n, plans, *blocks)
+    kept = T.optimize_dense(nodes, nm, ei, ej, z, om, em, 0, rb,
+                            n_iterations=2, convergence_eps=0.0)[0]
+    monkeypatch.setattr(T, "ordered_index_add_", _every_row)
+    H_all, b_all = T._scatter_dense(n, plans, *blocks)
+    every = T.optimize_dense(nodes, nm, ei, ej, z, om, em, 0, rb,
+                             n_iterations=2, convergence_eps=0.0)[0]
+    assert torch.equal(H, H_all) and torch.equal(b, b_all)
+    assert torch.equal(kept, every)
+
+
+def test_gn_steps_on_plans_bit_equal_on_two_shards(monkeypatch):
+    """One PCG step and one Schur step on a 2-shard virtual CPU mesh: the
+    plans (padded edges and interior slots left out) give the bits of the
+    every-row assembly."""
+    from icp_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(("cpu", "cpu"))
+    nodes, nm, ei, ej, z, om, em, rb = _closure_chain_1024(torch.float32)
+    part = TD.partition_graph(nodes.shape[0], ei.numpy(), ej.numpy(),
+                              z.numpy(), om.numpy(), em.numpy(), 2, 0,
+                              robust=rb.numpy())
+    assert not part.edge_mask.all() and not part.int_valid.all()
+
+    def steps():
+        return (TD.gn_step_cg_sharded(mesh, nodes, nm, ei, ej, z, om, em, 0,
+                                      rb, 0.5, 0.1, cg_iters=10),
+                TD.gn_step_schur_sharded(mesh, nodes, nm, part, 0.5, 0.1))
+    kept = steps()
+    monkeypatch.setattr(T, "ordered_index_add_", _every_row)
+    monkeypatch.setattr(TD, "ordered_index_add_", _every_row)
+    every = steps()
+    for a, b in zip(kept, every):
+        assert torch.equal(a, b)
+
+
+def test_solves_build_their_plans_once():
+    """The dense, PCG and Schur solves sort their indices once a solve,
+    not once a GN iteration: 2 plans (H, b) a dense solve, one a shard a
+    PCG solve, three a shard (H, b, back-substitution) a Schur solve."""
+    from icp_tpu_torch.ops import scatter as S
+    from icp_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(("cpu", "cpu"))
+    g = _chain_with_closures(T.PoseGraph2D("cpu"),
+                             closures=[(0, 48), (10, 60), (20, 80)])
+    nodes, nm, ei, ej, z, om, em, rb = g._packed_device()
+    part = TD.partition_graph(nodes.shape[0], ei.numpy(), ej.numpy(),
+                              z.numpy(), om.numpy(), em.numpy(), 2, 0)
+    for solve, per_solve in (
+            (lambda: T.optimize_dense(nodes, nm, ei, ej, z, om, em, 0,
+                                      n_iterations=4, convergence_eps=0.0), 2),
+            (lambda: TD.optimize_cg(mesh, nodes, nm, ei, ej, z, om, em, 0,
+                                    n_iterations=4, convergence_eps=0.0,
+                                    cg_iters=5), 2),
+            (lambda: TD.optimize_schur(mesh, nodes, nm, part, n_iterations=4,
+                                       convergence_eps=0.0), 6)):
+        before = S.segment_plan_builds
+        _, it = solve()
+        assert it == 4
+        assert S.segment_plan_builds - before == per_solve
+    before = S.segment_plan_builds
+    g.optimize(n_iterations=5)
+    assert g.last_strategy == "dense" and g.last_iterations >= 1
+    assert S.segment_plan_builds - before == 2

@@ -1,12 +1,16 @@
 """The ordered scatter-sum (ops/scatter.py) and what it carries: the voxel
 means and the pose-graph assembly, against CPU ``index_add_`` and icp_tpu.
 
-On the CPU ``ordered_index_add_`` is ``index_add_`` itself. What the CUDA
-kernel computes instead (a stable sort of the index, then each run of
-equal slots added one row after another from ``out``'s value) is
-emulated here in numpy, and held bit for bit against ``index_add_`` at
-every width and dtype the port uses; the kernel itself is held against
-``index_add_`` on the card (the ``gpu`` tests; ``chip_smoke.py`` phase 3).
+On the CPU ``ordered_index_add_`` is ``index_add_`` itself (of a plan's
+kept rows). What the CUDA kernel computes instead (a stable sort of the
+index, then each run of equal slots added one row after another from
+``out``'s value) is emulated here in numpy, and held bit for bit against
+``index_add_`` at every width and dtype the port uses: once as the
+algorithm, and once block by block as ``csrc/segment_add.cu`` walks a
+segment plan (its tiles, halo, exits and long-run stages). The kernel
+itself is held against ``index_add_`` on the card (the ``gpu`` tests,
+``pytest --noconftest -m gpu tests/test_torch_scatter.py``;
+``chip_smoke.py`` phase 3).
 
 ``voxel_downsample_fixed`` with capacity < N computes icp_tpu's mean, the
 cell centre plus the mean deviation from it. icp_tpu takes the deviation
@@ -52,6 +56,57 @@ def _emulate_kernel(out, index, src, sorted_index=False):
     return out
 
 
+# csrc/segment_add.cu's constants
+_THREADS, _STAGE, _HALO = 256, 512, 64
+
+
+def _emulate_tiles(out, slots, perm, src, n_slots):
+    """icp_segment_add as csrc/segment_add.cu walks a plan, block by block:
+    slots (N,) non-decreasing (left-out rows n_slots), perm (N,) or None,
+    src (N, width). Each block owns 256 // width rows; it exits when its
+    first slot is n_slots or when its rows all continue an earlier run;
+    each run that starts in it adds its staged rows (the tile and a halo
+    of up to 64 rows), and the one run that goes past them goes on a
+    stage of 512 values at a time. Adds round in out's dtype."""
+    width = math.prod(out.shape[1:])
+    out = out.copy().reshape(out.shape[0], width)
+    n = len(slots)
+    vals = src.reshape(n, width)
+    if perm is not None:
+        vals = vals[perm]
+    sl = lambda r: slots[r] if 0 <= r < n else -1  # noqa: E731
+    tile = _THREADS // width
+    halo = min(_HALO, (_STAGE - tile * width) // width)
+    chunk = _STAGE // width
+    for r0 in range(0, n, tile):
+        nt, ns = min(tile, n - r0), min(tile + halo, n - r0)
+        if sl(r0) >= n_slots or (r0 > 0 and sl(r0 + nt - 1) == sl(r0 - 1)):
+            continue                              # the uniform exits
+        for i in range(nt):
+            slot = sl(r0 + i)
+            if not (0 <= slot < n_slots and slot != sl(r0 + i - 1)):
+                continue
+            acc = out[slot].copy()
+            k = i
+            while True:                           # staged rows
+                acc = acc + vals[r0 + k]
+                k += 1
+                if not (k < ns and sl(r0 + k) == slot):
+                    break
+            j = r0 + ns
+            going = k == ns and sl(j) == slot
+            while going:                          # the long run's stages
+                m = min(chunk, n - j)
+                k = 0
+                while k < m and sl(j + k) == slot:
+                    acc = acc + vals[j + k]
+                    k += 1
+                going = k == m and sl(j + m) == slot
+                j += m
+            out[slot] = acc
+    return out
+
+
 def _case(rng, n, slots, width, dtype, sort):
     index = rng.integers(0, slots, n)
     if sort:
@@ -64,22 +119,60 @@ def _case(rng, n, slots, width, dtype, sort):
     return out, index, src
 
 
+def _keep(rng, mode, n):
+    """The rows a plan keeps: all ("plan"), about 70 % ("plan_kept"), none
+    ("plan_none"); None for a call without a plan."""
+    return {"sorted": None, "unsorted": None, "plan": np.ones(n, bool),
+            "plan_kept": rng.random(n) < 0.7,
+            "plan_none": np.zeros(n, bool)}[mode]
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("width", [1, 2, 3, 4, 9])
-@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("sort", ["sorted", "unsorted", "plan", "plan_kept",
+                                  "plan_none"])
 def test_ordered_index_add_matches_index_add(width, dtype, sort):
-    """The plain version is index_add_ (bit for bit, a non-zero out); the
-    kernel's algorithm, emulated, gives the same bits."""
-    rng = np.random.default_rng(width + 10 * sort)
+    """The plain version is index_add_ (bit for bit, a non-zero out), of a
+    plan's kept rows; the kernel, emulated as the algorithm and block by
+    block on the plan the card would build, gives the same bits. Where the
+    left-out rows hold +-0, the kept rows give index_add_'s bits of every
+    row."""
+    rng = np.random.default_rng(width + 10 * (sort == "sorted"))
     before = S.segment_add_launches
-    out, index, src = _case(rng, 5000, 300, width, dtype, sort)
-    want = torch.tensor(out).index_add_(0, torch.as_tensor(index),
-                                           torch.as_tensor(src))
-    got = S.ordered_index_add_(torch.tensor(out), torch.as_tensor(index),
-                               torch.as_tensor(src), sorted_index=sort)
+    out, index, src = _case(rng, 5000, 300, width, dtype, sort == "sorted")
+    keep = _keep(rng, sort, len(index))
+    ti, ts = torch.as_tensor(index), torch.as_tensor(src)
+    if keep is None:
+        rows = np.arange(len(index))
+        got = S.ordered_index_add_(torch.tensor(out), ti, ts,
+                                   sorted_index=sort == "sorted")
+    else:
+        rows = np.nonzero(keep)[0]
+        tk = torch.as_tensor(keep)
+        got = S.ordered_index_add_(torch.tensor(out),
+                                   S.segment_plan(ti, 300, keep=tk), ts)
+    want = torch.tensor(out).index_add_(0, ti[rows], ts[rows])
     assert torch.equal(got, want)
-    emu = _emulate_kernel(out, index, src, sorted_index=sort)
+    emu = _emulate_kernel(out, index[rows], src[rows],
+                          sorted_index=sort == "sorted")
     np.testing.assert_array_equal(emu.reshape(want.shape), want.numpy())
+    if sort == "sorted":
+        slots, perm = index, None
+    else:
+        slots, perm = (x.numpy() for x in S._plan_order(
+            ti, 300, None if keep is None else torch.as_tensor(keep)))
+    np.testing.assert_array_equal(
+        _emulate_tiles(out, slots, perm, src, 300).reshape(want.shape),
+        want.numpy())
+    if keep is not None:
+        # left-out rows of +-0 change no bit of index_add_ over every row
+        zeroed = np.where(keep.reshape((-1,) + (1,) * (src.ndim - 1)), src,
+                          np.copysign(0.0, rng.normal(size=src.shape))
+                          .astype(dtype))
+        every = torch.tensor(out).index_add_(0, ti, torch.as_tensor(zeroed))
+        plan = S.segment_plan(ti, 300, keep=torch.as_tensor(keep))
+        assert torch.equal(S.ordered_index_add_(
+            torch.tensor(out), plan, torch.as_tensor(zeroed)), every)
     assert S.segment_add_launches == before     # the CPU launches nothing
 
 
@@ -98,6 +191,25 @@ def test_ordered_index_add_edge_cases(case):
     assert torch.equal(got, want)
     np.testing.assert_array_equal(_emulate_kernel(out, index, src),
                                   want.numpy())
+    np.testing.assert_array_equal(_emulate_tiles(out, index, None, src, 16),
+                                  want.numpy())
+
+
+@pytest.mark.parametrize("width", [1, 3, 9])
+def test_long_runs_emulated_block_by_block(width):
+    """Runs of ~300-1,200 rows (a hub node's), longer than a block's tile,
+    its halo and a stage: the blocks' walk gives index_add_'s bits, f32
+    and f64."""
+    rng = np.random.default_rng(20 + width)
+    for dtype in (np.float32, np.float64):
+        out, index, src = _case(rng, 6000, 12, width, dtype, False)
+        index[:1200] = 5                          # one run of 1,200 rows
+        ti = torch.as_tensor(index)
+        want = torch.tensor(out).index_add_(0, ti, torch.as_tensor(src))
+        slots, perm = (x.numpy() for x in S._plan_order(ti, 12))
+        np.testing.assert_array_equal(
+            _emulate_tiles(out, slots, perm, src, 12).reshape(want.shape),
+            want.numpy())
 
 
 def test_concatenated_call_equals_calls_in_sequence():
@@ -253,6 +365,92 @@ def test_segment_add_kernel_on_the_card(cuda_device, shape):
             torch.cuda.synchronize()
             assert torch.equal(got.cpu(), want), (shape, dtype, sort)
             assert S.segment_add_launches == before + (n > 0)
+
+
+def _graph_adds(hub: bool = False):
+    """The ordered scatter-sums of one dense GN iteration and one PCG step
+    on a 1,024-node chain with a closure every 16 nodes (1,087 edges in
+    2,048 slots), recorded on the CPU: [(label, out before, plan, src)].
+    ``hub``: node 512 also gets 252 closures, 256 real edges in all."""
+    from icp_tpu_torch.models import pose_graph as PG
+    from icp_tpu_torch.parallel import dist_pose_graph as DP
+
+    rng = np.random.default_rng(5)
+    n = 1024
+    pg = PG.PoseGraph2D("cpu")
+    for k in range(n):
+        a = 2 * np.pi * k / n
+        pg.add_node([5 * np.cos(a), 5 * np.sin(a), a] + rng.normal(
+            scale=0.05, size=3))
+    pairs = [(k - 1, k) for k in range(1, n)]
+    pairs += [(i, (i + 16) % n) for i in range(0, n, 16)]
+    if hub:
+        pairs += [(512, j) for j in range(0, n, 4) if j not in (508, 512, 516)
+                  ][:252]
+    for i, j in pairs:
+        pg.add_edge(i, j, rng.normal(scale=0.1, size=3), np.eye(3) * 50.0)
+    g = pg._packed_device()
+    calls, real = [], S.ordered_index_add_
+
+    def rec(out, index, src, **kw):
+        calls.append((out.clone(), index, src.clone()))
+        return real(out, index, src, **kw)
+
+    PG.ordered_index_add_ = DP.ordered_index_add_ = rec
+    try:
+        PG.optimize_dense(*g[:7], 0, n_iterations=1, convergence_eps=0.0)
+        DP.gn_step_cg(*g[:7], 0, cg_iters=1)
+    finally:
+        PG.ordered_index_add_ = DP.ordered_index_add_ = real
+    labels = ["H (width 1)", "b (width 1)", "PCG b (width 3)",
+              "PCG blocks (width 9)", "PCG Hx (width 3)"]
+    return [(lab, *c) for lab, c in zip(labels, calls)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hub", [False, True], ids=["chain", "hub"])
+def test_segment_add_plans_on_the_card(cuda_device, hub):
+    """The pose graph's adds through plans built on the card, padded edges
+    left out: bit-equal to CPU index_add_ of every row, f32 and f64, one
+    launch a call; the hub's 256-edge runs take the long-run stages."""
+    for label, out, plan, src in _graph_adds(hub):
+        assert plan.keep is not None and not bool(plan.keep.all()), label
+        for dt in (torch.float32, torch.float64):
+            o, x = out.to(dt), src.to(dt)
+            want = o.clone().index_add_(0, plan.index, x)
+            dplan = S.segment_plan(plan.index.to(cuda_device), plan.n_slots,
+                                   keep=plan.keep.to(cuda_device))
+            before = S.segment_add_launches
+            got = S.ordered_index_add_(o.to(cuda_device), dplan,
+                                       x.to(cuda_device))
+            torch.cuda.synchronize()
+            assert S.segment_add_launches == before + 1
+            assert torch.equal(got.cpu(), want), (label, dt, hub)
+
+
+@pytest.mark.gpu
+def test_optimize_dense_repeats_on_the_card(cuda_device):
+    """optimize_dense (10 iterations) on the 1,024-node chain twice on the
+    card: bit-equal, 2 plan builds a solve."""
+    from icp_tpu_torch.models import pose_graph as PG
+
+    pg = PG.PoseGraph2D(cuda_device)
+    for k in range(1024):
+        a = 2 * np.pi * k / 1024
+        pg.add_node([5 * np.cos(a), 5 * np.sin(a), a + 0.01 * (k % 7)])
+    for k in range(1, 1024):
+        pg.add_edge(k - 1, k, [2 * np.pi * 5 / 1024, 0.0, 2 * np.pi / 1024])
+    for i in range(0, 1024, 16):
+        pg.add_edge(i, (i + 16) % 1024, [0.0, 0.0, 0.0], np.eye(3) * 50.0)
+    g = pg._packed_device()
+    runs = []
+    for _ in range(2):
+        builds = S.segment_plan_builds
+        out, it = PG.optimize_dense(*g[:7], 0, n_iterations=10,
+                                    convergence_eps=0.0)
+        assert S.segment_plan_builds == builds + 2 and it == 10
+        runs.append(out.cpu())
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.gpu
