@@ -112,7 +112,16 @@ Phases (any failed check ends the run with a non-zero exit code):
      init_distributed (gloo on one card, nccl with a card each) through a
      psum, a GN step and a 30-scan pipeline, held to each other and to one
      process; and dryrun_multichip(D).
-Phases 11-12, 14-16 run after phase 7 and before phases 8-10, whose
+ 17. the bench layer (icp_tpu_torch/bench): one headline pass in
+     BENCH_ENGINE_ONLY form after its kernel guard (ATE <= 0.050 m, >= 190
+     poses, both NN kernels launched in its timed region), the suite's
+     scan2scan and teapot_batch rows, and gt_init_ba on
+     benchmarks/graph50k_r05.npz: both solves through "cg"; the streamed
+     solve's chi2 within 1e-3 relative of icp_tpu's CPU figure and raised
+     by at most 0.1 %, its ATE within 0.05 m of icp_tpu's; the GT-init
+     solve lowering chi2 and landing below the streamed ATE (its chi2 gap
+     to icp_tpu's printed); each line printed.
+Phases 11-12, 14-17 run after phase 7 and before phases 8-10, whose
 torch.profiler window slows what comes after it; phase 13 (profiled
 itself), a profile of 12 scaled scans and the 3-D ICP's launch count come
 last.
@@ -137,7 +146,12 @@ import time
 import numpy as np
 import torch
 
-N_SCANS, N_BEAMS, BATCH = 200, 720, 16
+from icp_tpu_torch.bench.common import (
+    BATCH, BENCH_CFG, FEAT_SECTION, LC_SECTION, N_SCANS, gpu_line,
+    large_world as _large_world, load_sequence, read_counts, reset_counts)
+from icp_tpu_torch.bench.startup import (
+    _cloud, imu_sweep_rows, nn_cases, nn_min_cases, no_imu_sweep_rows)
+
 ATE_BOUND_M = 0.050       # icp_tpu scores 0.0416 m on this sequence
 LC_ATE_BOUND_M = 0.030    # icp_tpu scores 0.0186 m with loop closure
 # an H100 SXM's published peaks: float32 outside the tensor cores, HBM3
@@ -151,44 +165,9 @@ PEAK_F32_INSTR_S = PEAK_F32_FLOPS / 2
 # min, or nn_cuda's argmin compare and select
 INSTR_PER_PAIR = {"nn": 7, "nn_min": 6}
 
-# bench.py's configuration (BASELINE config #3: IMU + submap, no loop closure)
-BENCH_CFG = {
-    "imu": {"enabled": True, "narrow_search_range": 3.0},
-    "icp": {"method": "point_to_line", "normal_k": 16, "voxel_size": 0.04,
-            "error_threshold": 1e-10, "max_iterations": 150,
-            "error_reject_threshold": 0.5},
-    "features": {"method": "rotation_search", "rotation_voxel_size": 0.15,
-                 "angle_step_coarse": 1.5, "angle_step_fine": 0.1},
-    "submap": {"enabled": True, "size": 40, "voxel_size": 0.05,
-               "max_corr_dist": 1.5, "rotation_range": 60.0,
-               "rotation_step": 0.8, "rotation_fine_step": 0.05,
-               "rotation_voxel_size": 0.15},
-    "loop_closure": {"enabled": False},
-    "filter": {"z_min": 0.5, "z_max": 2.0},
-    "mapping": {"resolution": 0.05, "margin": 50.0},
-    "service": {"loop": False},
-    "display": {"live_map": False},
-    "tpu": {"scan_capacity": 768, "submap_capacity": 4096,
-            "max_ray_cells": 448, "batch_scans": BATCH, "nn_impl": "auto",
-            # one card even where more are visible; phase 16 sets true
-            "distributed": False},
-}
-# benchmarks/bench_suite.py's loop-closure section (its "lc" row)
-LC_SECTION = {"enabled": True, "distance_threshold": 3.0, "min_interval": 80,
-              "min_cumulative_travel": 6.0, "max_candidates": 5,
-              "error_threshold": 0.08, "optimization_iterations": 30,
-              "information_scale": 5.0, "cooldown": 30}
 # LC verification's rotation_search on scan-capacity clouds: 360 / 1.5 =
 # 240 coarse angles and 30 fine angles of 768 rows, against 768 targets
 LC_SWEEP_ROWS = (240 * 768, 30 * 768)
-# benchmarks/bench_suite.py's features section (its "features" row runs it
-# without IMU, submap on, loop closure off)
-FEAT_SECTION = {"method": "features", "rotation_voxel_size": 0.15,
-                "angle_step_coarse": 1.5, "angle_step_fine": 0.1,
-                "voxel_size": 0.1, "k_curvature": 10, "top_n": 100,
-                "min_kp_dist": 0.2, "k_descriptor": 16, "ratio_threshold": 0.8,
-                "ransac_iterations": 512, "inlier_threshold": 0.3,
-                "min_inliers": 4}
 FEAT_ATE_BOUND_M = 0.050  # icp_tpu scores 0.0430 m (no IMU, CPU battery)
 MODULAR_SCANS = 48        # phase 10's depth (scans after the first)
 MIN_POSES = 190           # of the 199 scans after the first
@@ -201,17 +180,28 @@ PLAIN_CHUNK = 32768       # rows a plain-version call at the 8192-target shapes
 ICP_LARGE_YAW_TOL = 2e-3  # bench_suite.py's own assertion
 SCALED_SCANS = 400        # of bench_scaled.py's 1,200 (icp_tpu's published run)
 SCALED_ATE_BOUND_M = 0.15  # icp_tpu's 400-scan run: 0.078 m (BENCHMARKS.md:15)
+# phase 17: the 50k-node loop graph and icp_tpu's figures for it
+# (benchmarks/gt_init_ba.py, 15 iterations, JAX on the CPU; PERF.md §6 has
+# every reading these limits were set from). The streamed-init solve (the
+# pipeline's terminal BA) is held to them: chi2 within 1e-3 relative, its
+# drop (pre - post) within [0.5, 3] x icp_tpu's (a solve that does nothing
+# drops 0; one GN step raises chi2), ATE within 0.05 m (it moves by
+# millimetres between backends). The ground-truth-init solve, 15 GN steps
+# from chi2 19.4 and not converged, moves with rounding between backends
+# (the coarse supernode solve's f32 LU), so it is held to 1e-2; a
+# one-step solve from the same start, the control, must land outside it
+GT_INIT_GRAPH = "benchmarks/graph50k_r05.npz"
+GT_INIT_CPU = {"chi2_streamed_pre": 0.03289954, "chi2_streamed_post": 0.03289603,
+               "chi2_gt_init_post": 0.04426118, "ate_streamed_init_m": 0.8073}
+GT_INIT_CHI2_RTOL = 1e-3
+GT_INIT_DROP_RANGE = (0.5, 3.0)
+GT_INIT_GT_RTOL = 1e-2
+GT_INIT_CONTROL_ITERS = 1
+GT_INIT_ATE_TOL_M = 0.05
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def time_ms(fn, iters=100, warmup=5):
@@ -275,79 +265,6 @@ def graph_ms(fn, calls=20, replays=10):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def _cloud(rng, n, lo=-20.0, hi=20.0):
-    return rng.uniform(lo, hi, (n, 2)).astype(np.float32)
-
-
-def nn_cases(rng):
-    """(label, src, tgt, mask) cases for nn_cuda: the main path's shapes,
-    ties that straddle the kernel's target slices, and the edges of its
-    launch geometry (M below one slice, M = 0, N = 1, every cluster size,
-    a target that is not 16-byte aligned)."""
-    base = rng.uniform(-5, 5, (512, 2)).astype(np.float32)
-    cases = [
-        # the tie case of bench.py (duplicate targets), random data at both
-        # main-path shapes, and a ragged shape
-        ("bench tie", rng.uniform(-5, 5, (768, 2)).astype(np.float32),
-         np.concatenate([base, base[:256]]), np.arange(768) < 700),
-        ("random", _cloud(rng, 768), _cloud(rng, 4096), rng.random(4096) < 0.9),
-        ("ragged", _cloud(rng, 700), _cloud(rng, 4000), rng.random(4000) < 0.9),
-        ("random", _cloud(rng, 768), _cloud(rng, 768), rng.random(768) < 0.9),
-    ]
-    # the target set concatenated with a copy of itself: every row's
-    # nearest target has a twin in a later slice, and the lower index wins
-    for half in (2048, 384, 1000):
-        tgt = _cloud(rng, half)
-        msk = rng.random(half) < 0.9
-        src = _cloud(rng, 768)
-        src[:32] = tgt[:32]                         # zero distances
-        cases.append(("self-concat", src, np.concatenate([tgt, tgt]),
-                      np.concatenate([msk, msk])))
-    # all-equal targets: every valid target ties
-    for m, frac in ((4096, 0.9), (768, 1.0)):
-        cases.append(("all-equal", _cloud(rng, 768),
-                      np.tile(np.float32([[1.5, -0.5]]), (m, 1)),
-                      rng.random(m) < frac))
-    cases += [
-        ("M < slice", _cloud(rng, 768), _cloud(rng, 5), np.ones(5, bool)),
-        ("M = 0", _cloud(rng, 768), np.zeros((0, 2), np.float32),
-         np.zeros(0, bool)),
-        ("N = 1", _cloud(rng, 1), _cloud(rng, 4096), rng.random(4096) < 0.9),
-        ("misaligned", _cloud(rng, 768), _cloud(rng, 4095),
-         rng.random(4095) < 0.9),
-    ]
-    # 2..7 chunks of 64 targets: clusters of 2..7 blocks, last chunk ragged
-    for c in range(2, 8):
-        m = 64 * c - 13
-        cases.append((f"cluster {c}", _cloud(rng, 100), _cloud(rng, m),
-                      rng.random(m) < 0.9))
-    return cases
-
-
-def nn_min_cases(rng, sweep_shapes):
-    """(label, rows, tgt, mask) cases for nn_min_cuda: every sweep shape
-    (10 % of the targets masked) and the edges of the kernel's staging and
-    launch geometry."""
-    cases = [(label, _cloud(rng, r), _cloud(rng, m), rng.random(m) < 0.9)
-             for label, (r, m) in sweep_shapes.items()]
-    same = _cloud(rng, 1792)
-    far = (-1e16, 1e16)           # nearest d2 around 1e30, on both sides of BIG
-    cases += [
-        ("M = 0", _cloud(rng, 300), np.zeros((0, 2), np.float32), np.zeros(0, bool)),
-        ("all masked", _cloud(rng, 300), _cloud(rng, 1000), np.zeros(1000, bool)),
-        ("R = 1", _cloud(rng, 1), _cloud(rng, 1792), rng.random(1792) < 0.9),
-        ("M odd", _cloud(rng, 777), _cloud(rng, 1791), rng.random(1791) < 0.9),
-        ("M = 5", _cloud(rng, 500), _cloud(rng, 5), np.ones(5, bool)),
-        ("misaligned", _cloud(rng, 2000), _cloud(rng, 1792), rng.random(1792) < 0.9),
-        ("rows = targets", same.copy(), same, rng.random(1792) < 0.9),
-        ("M = 4096", _cloud(rng, 3000), _cloud(rng, 4096), rng.random(4096) < 0.9),
-        ("M = 9000", _cloud(rng, 3000), _cloud(rng, 9000), rng.random(9000) < 0.9),
-        ("far, none masked", _cloud(rng, 600, *far), _cloud(rng, 700, *far),
-         np.ones(700, bool)),
-    ]
-    return cases
-
-
 def lc8k_cases(rng):
     """(key, label, rows, tgt, mask) at the scaled pipeline's loop-closure
     shapes: clouds within +-35 m (the max range), 60 % of the 8192 slots
@@ -373,27 +290,6 @@ def chunked(plain):
             return tuple(torch.cat(o) for o in zip(*outs))
         return torch.cat(outs)
     return run
-
-
-def imu_sweep_rows(cfg, src_cap):
-    """Rows of the IMU main path's submap sweep: the coarse pass over
-    +-imu_narrow at 0.5 degrees, then _fine_count(0.5, fine step) angles."""
-    from icp_tpu_torch.models.prealign import _fine_count
-
-    r = cfg.imu_narrow
-    coarse = len(np.arange(-r, r + 0.5, 0.5))
-    return coarse * src_cap, _fine_count(0.5, cfg.sub_rot_fine) * src_cap
-
-
-def no_imu_sweep_rows(cfg, src_cap):
-    """Rows of the no-IMU submap sweep's coarse and fine passes: one
-    src_cap cloud per angle of +-rotation_range at rotation_step, and
-    _fine_count(step, fine step) angles around the best."""
-    from icp_tpu_torch.models.prealign import _fine_count
-
-    r, st = cfg.sub_rot_range, cfg.sub_rot_step
-    coarse = len(np.arange(-r, r + st, st))
-    return coarse * src_cap, _fine_count(st, cfg.sub_rot_fine) * src_cap
 
 
 def check_kernels(dev, sweep_shapes) -> dict:
@@ -493,24 +389,6 @@ def check_kernels(dev, sweep_shapes) -> dict:
         f"|dR| {float((b.R - a.R).abs().max()):.3g}, "
         f"|dt| {float((b.t - a.t).abs().max()):.3g}")
     return err
-
-
-def reset_counts():
-    """Every kernel wrapper's launch counter to 0."""
-    from icp_tpu_torch.ops import scatter as SC
-    from icp_tpu_torch.ops.hopper import nn_kernel as K
-
-    K.reset_launch_counts()
-    SC.reset_launch_counts()
-
-
-def read_counts() -> dict:
-    """{kernel key: launches since reset_counts()}."""
-    from icp_tpu_torch.ops import scatter as SC
-    from icp_tpu_torch.ops.hopper import nn_kernel as K
-
-    return {"nn": K.nn_launches, "nn_min": K.nn_min_launches,
-            "segment_add": SC.segment_add_launches}
 
 
 def all_launched(counts) -> bool:
@@ -859,25 +737,6 @@ def time_kernels(dev, scan_cap, submap_cap, sweep_shapes, card) -> dict:
     return timings
 
 
-def load_sequence(td):
-    from icp_tpu_torch.engine import filter_and_flatten
-    from icp_tpu_torch.services.imu import IMUService
-    from icp_tpu_torch.services.lidar import LidarService
-    from icp_tpu_torch.utils.synth import generate_sequence
-
-    lidar_csv = os.path.join(td, "bench_lidar.csv")
-    imu_csv = os.path.join(td, "bench_imu.csv")
-    gt = generate_sequence(lidar_csv, imu_csv, n_scans=N_SCANS,
-                           n_beams=N_BEAMS, noise=0.005, trajectory="loop",
-                           seed=42)
-    scans, rels = [], []
-    for _, rel, raw in LidarService(lidar_csv).scans():
-        scans.append(filter_and_flatten(raw, BENCH_CFG["filter"]["z_min"],
-                                        BENCH_CFG["filter"]["z_max"]))
-        rels.append(rel)
-    return gt, scans, rels, IMUService(imu_csv)
-
-
 def run_engine(cfg, imu, scans, rels, dev, warmup=False, probe=None):
     """A path as a user drives it; returns (engine, seconds). ``probe(eng)``
     runs after each batch."""
@@ -1102,25 +961,6 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
         f"launches, {counts['h2d']} host-to-device and {counts['d2h']} "
         f"device-to-host copies (torch.profiler) on {card}")
     return launches
-
-
-def _large_world(n_points=100_000, seed=11):
-    """benchmarks/bench_suite.py's 100k-point world: random wall segments in
-    a 200 m arena (a copy: benchmarks/ is not imported here)."""
-    rng = np.random.default_rng(seed)
-    n_walls = 200
-    starts = rng.uniform(-100, 100, (n_walls, 2))
-    horiz = rng.integers(0, 2, n_walls).astype(bool)
-    lengths = rng.uniform(10, 30, n_walls)
-    per = n_points // n_walls
-    pts = []
-    for s, h, L in zip(starts, horiz, lengths):
-        t = rng.uniform(0, L, per)
-        pts.append(np.stack([s[0] + np.where(h, t, 0.0),
-                             s[1] + np.where(h, 0.0, t)], axis=1))
-    cloud = np.concatenate(pts).astype(np.float32)
-    cloud += rng.normal(scale=0.02, size=cloud.shape).astype(np.float32)
-    return cloud
 
 
 def compact_nn_bound(cq, grid):
@@ -2007,6 +1847,66 @@ def mesh_phase(dev, card, td, base) -> dict:
             "wall": wall, "D": D, "virtual": virtual}
 
 
+def bench_phase(dev, card, td, seq) -> dict:
+    """Phase 17: the bench layer (icp_tpu_torch/bench). One headline pass in
+    BENCH_ENGINE_ONLY form (its kernel guard first), the scan2scan and
+    teapot_batch rows, and gt_init_ba on the 50k-node loop graph, each
+    line printed. Returns the kernels' launches per run."""
+    from icp_tpu_torch.bench import gt_init_ba, headline, suite
+    from icp_tpu_torch.bench.common import KERNEL_NAMES
+
+    t_phase = time.perf_counter()
+    line = headline.run(dev, passes=1, engine_only=True, data_dir=td)
+    print(json.dumps(line), flush=True)
+    head = {k: line["kernel_launches"][name] for k, name in KERNEL_NAMES.items()}
+    assert line["ate_m"] <= ATE_BOUND_M, f"headline ATE {line['ate_m']:.4f} m"
+    assert line["poses_kept"] >= MIN_POSES, f"headline kept {line['poses_kept']} poses"
+    assert head["nn"] > 0 and head["nn_min"] > 0, head
+
+    for name, fn in (("scan2scan", lambda: suite.bench_scan2scan(dev, seq)),
+                     ("teapot_batch", lambda: suite.bench_teapot_batch(dev, reps=2))):
+        row = fn()
+        print(json.dumps({**row, "config": name, "card": card}), flush=True)
+        assert np.isfinite(row["value"]) and row["value"] > 0, (name, row["value"])
+    assert np.isfinite(row["mean_error"]), row
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), GT_INIT_GRAPH)
+    graph = np.load(path)
+    ba = gt_init_ba.run(dev, graph)
+    print(json.dumps(ba), flush=True)
+    assert ba["strategy_streamed"] == ba["strategy_gt"] == "cg", ba
+    rel = {k: ba[k] / GT_INIT_CPU[k] - 1
+           for k in ("chi2_streamed_post", "chi2_gt_init_post")}
+    drop = ((ba["chi2_streamed_pre"] - ba["chi2_streamed_post"])
+            / (GT_INIT_CPU["chi2_streamed_pre"] - GT_INIT_CPU["chi2_streamed_post"]))
+    # the control: the GT-init solve cut to one GN step
+    pg = gt_init_ba.gt_init_graph(graph, dev)
+    gt_init_ba.timed_solve(pg, GT_INIT_CONTROL_ITERS, dev)
+    rel_control = pg.total_error() / GT_INIT_CPU["chi2_gt_init_post"] - 1
+    log(f"gt_init_ba: chi2 after each solve relative to icp_tpu's CPU figure "
+        f"{rel} (GT init limit {GT_INIT_GT_RTOL}; a {GT_INIT_CONTROL_ITERS}-step "
+        f"control {rel_control:+.4g}); streamed chi2 drop {drop:.4g} x icp_tpu's "
+        f"(range {GT_INIT_DROP_RANGE}); ATE streamed {ba['ate_streamed_init_m']:.4f} m "
+        f"(icp_tpu {GT_INIT_CPU['ate_streamed_init_m']}), GT init "
+        f"{ba['ate_gt_init_m']:.4f} m; plan builds "
+        f"{ba['span_ms_streamed'].get('segment_plan', 0.0):.3f} / "
+        f"{ba['span_ms_gt'].get('segment_plan', 0.0):.3f} ms a solve")
+    assert abs(rel["chi2_streamed_post"]) <= GT_INIT_CHI2_RTOL, rel
+    assert GT_INIT_DROP_RANGE[0] <= drop <= GT_INIT_DROP_RANGE[1], ("drop", drop)
+    assert ba["chi2_streamed_post"] <= ba["chi2_streamed_pre"] * 1.001, ba
+    gap = abs(ba["ate_streamed_init_m"] - GT_INIT_CPU["ate_streamed_init_m"])
+    assert gap <= GT_INIT_ATE_TOL_M, ("ate_streamed_init_m", ba["ate_streamed_init_m"])
+    assert abs(rel["chi2_gt_init_post"]) <= GT_INIT_GT_RTOL, rel
+    assert abs(rel_control) > GT_INIT_GT_RTOL, ("control inside the limit", rel_control)
+    assert ba["chi2_gt_init_post"] < ba["chi2_at_gt"], ba
+    assert ba["ate_gt_init_m"] < ba["ate_streamed_init_m"], ba
+    log(f"bench layer phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    # each solve's launches, counted from 0 just before it, read just after
+    solves = {k: sum(ba[f"kernel_launches_{tag}"][name] for tag in ("streamed", "gt"))
+              for k, name in KERNEL_NAMES.items()}
+    return {"bench_headline": head, "gt_init_ba": solves}
+
+
 def main():
     mesh_only = sys.argv[1:] == ["--mesh"]
     if sys.argv[1:] and not mesh_only:
@@ -2181,6 +2081,9 @@ def run(td, mesh_only=False):
             "count": torch.cuda.device_count()}}), flush=True)
         return
 
+    # ── 17. the bench layer ──────────────────────────────────────────────
+    launches_bench = bench_phase(dev, card, td, (gt, scans, rels, imu))
+
     # ── 14. the native CSV parser; 15. 3-D ICP and entry() ───────────────
     parser_phase(os.path.join(td, "bench_lidar.csv"))
     align3d, computed3d = icp3d_phase(dev, card, td)
@@ -2191,6 +2094,7 @@ def run(td, mesh_only=False):
     launches_feat["scaled"] = scaled["launches"]
     launches_feat["mesh_engine"] = mesh["engine"]
     launches_feat["mesh_scaled"] = mesh["scaled"]
+    launches_feat.update(launches_bench)
 
     # ── 13. the file-driven path (profiled itself) ───────────────────────
     launches_feat["file_driven"] = file_driven_phase(dev, card, td, gt, n_steps)

@@ -1,0 +1,10 @@
+"""The benchmark layer of icp_tpu_torch: the counterparts of the repository's
+``bench.py`` (``headline``), ``benchmarks/bench_suite.py``'s one-card rows
+(``suite``) and ``benchmarks/gt_init_ba.py`` (``gt_init_ba``), with what
+they share in ``common`` and the kernel guard they run before any timing
+in ``startup``.
+
+Each entry point runs on the card unless it is given ``--device cpu``, and
+prints the JSON line of its original plus the card's name and power limit.
+Without a card and without ``--device cpu`` it raises.
+"""

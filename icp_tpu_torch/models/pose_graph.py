@@ -19,6 +19,9 @@ it into power-of-two capacity buckets and solves on ``device``:
   ``node_threshold`` nodes up solve by the distributed Schur-complement GN,
   or by the distributed PCG past the Schur limits.
 
+The PCG route's parts are spans (``utils.spans``): ``coarse_correct``,
+``pack``, ``pcg``, ``store`` and ``total_error``.
+
 Anchor semantics are icp_tpu's and the reference's (pose_graph.py:109-114):
 the fixed node's rows and columns are zeroed and its diagonal block set to
 1e10 * I. Padded nodes get an identity diagonal.
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from icp_tpu_torch.ops.scatter import ordered_index_add_, segment_plan
+from icp_tpu_torch.utils import spans
 from icp_tpu_torch.utils.masking import next_pow2
 from icp_tpu_torch.utils.se2 import pose_to_vec_np, vec_to_pose_np, wrap_angle
 
@@ -306,9 +310,10 @@ class PoseGraph2D:
                 t(z), t(om), t(em), t(rb))
 
     def _store(self, out: torch.Tensor):
-        out = out.cpu().numpy()
-        for k in range(self.n_nodes):
-            self._nodes[k] = out[k]
+        with spans.span("store"):
+            out = out.cpu().numpy()
+            for k in range(self.n_nodes):
+                self._nodes[k] = out[k]
 
     # ── optimisation ─────────────────────────────────────────────────────
     def optimize(self, n_iterations=20, fix_node=0, convergence_eps=1e-6):
@@ -489,14 +494,18 @@ class PoseGraph2D:
         if mesh is None:
             mesh = Mesh((self.device,))
         if self.n_nodes >= self._coarse_threshold and damping == 0.0:
-            self._coarse_correct(int(fix_node), max(2, self.n_nodes // 1000))
+            with spans.span("coarse_correct"):
+                self._coarse_correct(int(fix_node),
+                                     max(2, self.n_nodes // 1000))
         self.last_strategy = "cg" if mesh.size == 1 else "dist_cg"
-        nodes, nm, ei, ej, z, om, em, rb = self._packed_device()
-        out, it = optimize_cg(
-            mesh, nodes, nm, ei, ej, z, om, em, int(fix_node),
-            n_iterations=int(n_iterations), convergence_eps=convergence_eps,
-            robust_mask=rb, robust_phi=float(self.robust_phi),
-            damping=float(damping))
+        with spans.span("pack"):
+            nodes, nm, ei, ej, z, om, em, rb = self._packed_device()
+        with spans.span("pcg"):
+            out, it = optimize_cg(
+                mesh, nodes, nm, ei, ej, z, om, em, int(fix_node),
+                n_iterations=int(n_iterations),
+                convergence_eps=convergence_eps, robust_mask=rb,
+                robust_phi=float(self.robust_phi), damping=float(damping))
         self.last_iterations += it
         self._store(out)
 
@@ -538,5 +547,6 @@ class PoseGraph2D:
     def total_error(self) -> float:
         if self.n_edges == 0:
             return 0.0
-        nodes, _, ei, ej, z, om, em, _ = self._packed_device()
-        return float(total_error(nodes, ei, ej, z, om, em))
+        with spans.span("total_error"):
+            nodes, _, ei, ej, z, om, em, _ = self._packed_device()
+            return float(total_error(nodes, ei, ej, z, om, em))

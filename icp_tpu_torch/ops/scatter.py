@@ -10,7 +10,8 @@ On the CPU it is ``index_add_`` itself (the plain version). For CUDA
 tensors it launches ``icp_segment_add`` (``csrc/segment_add.cu``, built by
 ``ops/hopper/build.py`` at first use) on a segment plan, or raises; it
 never falls back to ``index_add_``. ``segment_add_launches`` counts kernel
-launches, ``segment_plan_builds`` the plans built.
+launches, ``segment_plan_builds`` the plans built (span
+``segment_plan``, see ``utils.spans``).
 
 A segment plan (``segment_plan``) is the index in the kernel's order: a
 stable sort on 32-bit keys and its permutation, built on the device with
@@ -32,6 +33,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from icp_tpu_torch.utils import spans
 
 segment_add_launches = 0
 segment_plan_builds = 0
@@ -72,8 +75,9 @@ def segment_plan(index, n_slots: int, keep=None) -> SegmentPlan:
     n_slots = int(n_slots)
     if index.device.type == "cpu":
         return SegmentPlan(index, keep, n_slots, None, None)
-    return SegmentPlan(index, keep, n_slots, *_plan_order(index, n_slots,
-                                                          keep))
+    with spans.span("segment_plan"):
+        return SegmentPlan(index, keep, n_slots,
+                           *_plan_order(index, n_slots, keep))
 
 
 def _plan_order(index, n_slots: int, keep=None):
