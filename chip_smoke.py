@@ -70,17 +70,19 @@ Phases (any failed check ends the run with a non-zero exit code):
      point-to-point and point-to-line: check the yaw within 2e-3 rad; print
      ms per alignment (3 warm repetitions), iterations, drops, and each
      dense-grid op's time by CUDA events beside its bound;
- 12. the scaled pipeline (ScaledPipeline, BASELINE config #5) at
+ 12. the scaled pipeline (ScaledPipeline, BASELINE config #5) through
+     icp_tpu_torch.bench.scaled (its kernel guard and protocol) at
      benchmarks/bench_scaled.py's full width, 100k-point scans, cut to 400
-     of its 1,200 scans, counters reset just before: check 400 poses, >= 1
-     closure, >= 1 BA run, both counters > 0, finite poses and map, the map
-     clean after optimize(15), and ATE <= 0.15 m after it; print scans/s,
-     ATE while streaming, the stats, the wall split, kernel launches per
-     loop-closure check and peak device memory; then run it again to the
-     scan of its first bundle adjustment (the first closure's) and check
-     the trajectory and map there bit-equal to the first run's; then time
-     the parts of 12 scaled scans (each step, icp_large and compact_nn
-     synchronized).
+     of its 1,200 scans, its graph dumped: check its line has every key of
+     bench_scaled.py's, 400 poses, >= 1 closure, >= 1 BA run, every kernel
+     launched in its timed region, finite poses and map, the map clean
+     after optimize(15), a finite GN step time and ATE <= 0.15 m after the
+     terminal BA; print the line, ATE while streaming, the stats, LM
+     retries, the wall split, kernel launches per loop-closure check and
+     peak device memory; then run it again to the scan of its first bundle
+     adjustment (the first closure's) and check the trajectory and map
+     there bit-equal to the first run's; then time the parts of 12 scaled
+     scans (each step, icp_large and compact_nn synchronized).
  13. the file-driven path: the bench sequence's CSVs and a YAML of bench.py's
      configuration with display.live_map on (snapshot_every 50) through
      icp_tpu_torch.cli.main with --map-png, --profile, --save-traj, all
@@ -121,7 +123,17 @@ Phases (any failed check ends the run with a non-zero exit code):
      by at most 0.1 %, its ATE within 0.05 m of icp_tpu's; the GT-init
      solve lowering chi2 and landing below the streamed ATE (its chi2 gap
      to icp_tpu's printed); each line printed.
-Phases 11-12, 14-17 run after phase 7 and before phases 8-10, whose
+ 18. the rest of the bench layer: bench.distributed at its 50,000 nodes on
+     2 virtual shards of the card (--virtual-devices 2: meshes 1 and 2):
+     the 2-shard CG step's nodes within rtol 1e-4 / atol 1e-5 of the
+     1-shard step's, every step time finite and > 0, icp_segment_add
+     launched; bench.scaling on 2 virtual shards at 40 of its 120 scans
+     (16,384 points, meshes 1 and 2; no loop closes): two lines, the second
+     with efficiency_vs_smallest, positions within 1 cm of each other; and
+     bench.gt_init_ba on phase 12's graph dump: the streamed-init solve
+     raising chi2 by at most 0.1 % (phase 17's bound) plus the chi2 the
+     graph cannot resolve in float32 (chi2_floor). Each line printed.
+Phases 11-12, 14-18 run after phase 7 and before phases 8-10, whose
 torch.profiler window slows what comes after it; phase 13 (profiled
 itself), a profile of 12 scaled scans and the 3-D ICP's launch count come
 last.
@@ -147,8 +159,9 @@ import numpy as np
 import torch
 
 from icp_tpu_torch.bench.common import (
-    BATCH, BENCH_CFG, FEAT_SECTION, LC_SECTION, N_SCANS, gpu_line,
-    large_world as _large_world, load_sequence, read_counts, reset_counts)
+    BATCH, BENCH_CFG, FEAT_SECTION, KERNEL_NAMES, LC_SECTION, N_SCANS,
+    gpu_line, large_world as _large_world, load_sequence, read_counts,
+    reset_counts)
 from icp_tpu_torch.bench.startup import (
     _cloud, imu_sweep_rows, nn_cases, nn_min_cases, no_imu_sweep_rows)
 
@@ -198,6 +211,23 @@ GT_INIT_DROP_RANGE = (0.5, 3.0)
 GT_INIT_GT_RTOL = 1e-2
 GT_INIT_CONTROL_ITERS = 1
 GT_INIT_ATE_TOL_M = 0.05
+# benchmarks/bench_scaled.py's line (:159-186): bench.scaled prints each key
+BENCH_SCALED_KEYS = {
+    "metric", "value", "unit", "n_scans", "points_per_scan", "n_keyframes",
+    "n_devices", "icp_method", "submap_keyframes", "gn_step_ms",
+    "partition_ms", "ba_strategy", "gn_step_strategy", "ate_m",
+    "ate_stream_m", "loop_closures", "lc_checked", "ba_runs",
+    "gate_fallbacks", "reg_dropped_points", "wall_replay_s",
+    "wall_replay_fill_s", "replayed_keyframes", "map_cells", "trajectory",
+    "backend"}
+# phase 18: the sharded GN steps against one shard (phase 16's tolerance),
+# the scaling run's two meshes against each other (phase 16's bound for
+# the scaled run over a mesh), the closing solve of phase 12's graph dump
+# (phase 17's 0.1 %, plus the graph's f32 floor: see chi2_floor)
+DIST_RTOL, DIST_ATOL = 1e-4, 1e-5
+SCALING_SCANS = 40            # of bench_scaling.py's 120: closes no loop
+SCALING_GAP_M = 1e-2
+DUMP_CHI2_RAISE = 1.001
 
 
 def log(*a):
@@ -1084,27 +1114,15 @@ def icp_large_phase(dev, card, n_points=100_000) -> dict:
 
 
 def make_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000):
-    """The scaled pipeline at benchmarks/bench_scaled.py's configuration,
-    every capacity unchanged, and its scan stream as the bench makes it."""
+    """The scaled pipeline at benchmarks/bench_scaled.py's configuration
+    (``bench.scaled.pipeline_kwargs`` at its defaults), every capacity
+    unchanged, and its scan stream as the bench makes it."""
+    from icp_tpu_torch.bench import scaled as BS
     from icp_tpu_torch.parallel.scaled import ScaledPipeline
-    from icp_tpu_torch.utils.synth import large_scan_stream
 
-    cap = 1 << int(np.ceil(np.log2(n_points)))
-    pipe = ScaledPipeline(
-        dev, scan_capacity=cap, extent=100.0, map_resolution=0.25,
-        map_margin=10.0, max_range=35.0, icp_max_corr=1.0,
-        icp_max_iterations=30, icp_method="point_to_line",
-        icp_grid_shape=(160, 160), icp_cell_cap=64, icp_qcells=8192,
-        map_ray_stride=8, kf_capacity=KF_CAP, kf_voxel=0.3,
-        submap_keyframes=8, lc_every=8, lc_min_interval=max(50, n_scans // 10),
-        lc_distance=15.0, lc_min_travel=60.0, lc_error_threshold=0.05,
-        lc_max_candidates=4, ba_every=1, lc_info_cap=1e3, lc_robust=True,
-        lc_cooldown=25, ba_iterations=10, replay_chunk=64,
-        dist_node_threshold=2)
-    stream = large_scan_stream(n_scans, n_points=n_points, extent=100.0,
-                               max_range=35.0, noise=0.02, seed=3,
-                               trajectory="loop")
-    return pipe, stream
+    kw = BS.pipeline_kwargs(n_scans, n_points, env={})
+    assert kw["kf_capacity"] == KF_CAP, kw["kf_capacity"]
+    return ScaledPipeline(dev, **kw), BS.scan_stream(n_scans, n_points)
 
 
 def run_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000, probe=None,
@@ -1240,9 +1258,11 @@ def scaled_profile(dev, card, n_scans=24, window=12) -> dict:
     return out
 
 
-def scaled_phase(dev, card) -> dict:
-    """Phase 12: the scaled pipeline at full width, 400 scans."""
-    from icp_tpu_torch.utils.metrics import ate
+def scaled_phase(dev, card, td) -> dict:
+    """Phase 12: the scaled pipeline at full width, 400 scans, through
+    ``bench.scaled`` (its kernel guard, protocol and line; the graph dump
+    into ``td``)."""
+    from icp_tpu_torch.bench import scaled as BS
 
     # the state right after the first bundle adjustment (the first
     # closure's), for the second run to be held to
@@ -1254,17 +1274,23 @@ def scaled_phase(dev, card) -> dict:
                          traj=np.stack(p.trajectory),
                          lo=p.log_odds.cpu().clone())
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts()
+    dump = os.path.join(td, "scaled_graph.npz")
     t0 = time.perf_counter()
-    pipe, gt, sps = run_scaled(dev, probe=probe)
-    ate_stream = ate(np.stack(pipe.trajectory), gt, gt_offset=0)
-    pipe.optimize(n_iterations=15)
+    line, pipe, gt = BS.run(dev, env={"BENCH_SCALED_SCANS": str(SCALED_SCANS),
+                                      "BENCH_SCALED_DEVICES": "1",
+                                      "BENCH_SCALED_DUMP_GRAPH": dump},
+                            probe=probe)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    print(json.dumps(line), flush=True)
+    missing = BENCH_SCALED_KEYS - set(line)
+    assert not missing, f"bench.scaled's line lacks {sorted(missing)}"
+    # the timed region's launches (scans 3-399 and finish; the guard's
+    # comparisons are outside it)
+    launches = {k: line["kernel_launches"][name]
+                for k, name in KERNEL_NAMES.items()}
     traj = np.stack(pipe.trajectory)
-    ate_ba = ate(traj, gt, gt_offset=0)
+    sps, ate_stream, ate_ba = line["value"], line["ate_stream_m"], line["ate_m"]
     st = pipe.stats
     peak = torch.cuda.max_memory_allocated(dev)
     checks = max(st.lc_checked, 1)
@@ -1276,15 +1302,17 @@ def scaled_phase(dev, card) -> dict:
         f"{st.loop_closures} lc_checked={st.lc_checked} lc_candidates="
         f"{st.lc_candidates} ba_runs={st.ba_runs} gate_fallbacks="
         f"{st.gate_fallbacks} reg_dropped_points={st.reg_dropped_points} "
-        f"replayed_keyframes={st.replayed_keyframes} icp_iters={st.icp_iters}")
+        f"replayed_keyframes={st.replayed_keyframes} icp_iters={st.icp_iters} "
+        f"LM retries {line['lm_retries']} rejected {line['rejected_solves']}")
     log(f"  wall: registration {st.wall_registration:.2f} s, lc "
         f"{st.wall_lc:.2f} s, ba {st.wall_ba:.2f} s, replay "
         f"{st.wall_replay:.2f} s (fill {st.wall_replay_fill:.2f} s); "
-        f"launches {launches}, per loop-closure check nn "
+        f"launches in the timed region {launches}, per loop-closure check nn "
         f"{launches['nn'] / checks:.1f} nn_min {launches['nn_min'] / checks:.1f}; "
-        f"peak device memory {peak / 2**30:.2f} GiB; grid {pipe.ny}x{pipe.nx}")
+        f"peak device memory {peak / 2**30:.2f} GiB; grid {pipe.ny}x{pipe.nx}; "
+        f"GN step {line['gn_step_ms']:.2f} ms ({line['gn_step_strategy']})")
     lo = pipe.log_odds
-    assert len(traj) == SCALED_SCANS, f"{len(traj)} poses"
+    assert line["n_scans"] == len(traj) == SCALED_SCANS, f"{len(traj)} poses"
     assert np.isfinite(traj).all(), "non-finite pose (scaled)"
     assert bool(torch.isfinite(lo).all()), "non-finite map (scaled)"
     assert int((lo != 0).sum()) > 0, "empty map (scaled)"
@@ -1292,6 +1320,7 @@ def scaled_phase(dev, card) -> dict:
     assert st.ba_runs >= 1, "no bundle adjustment (scaled)"
     assert not pipe._map_dirty, "map still dirty after optimize (scaled)"
     assert all_launched(launches), launches
+    assert np.isfinite(line["gn_step_ms"]) and line["gn_step_ms"] > 0, line
     assert ate_ba <= SCALED_ATE_BOUND_M, \
         f"scaled ATE {ate_ba:.4f} m > {SCALED_ATE_BOUND_M} m"
 
@@ -1312,7 +1341,7 @@ def scaled_phase(dev, card) -> dict:
     assert same, "scaled pipeline: the second run differs from the first"
     return {"launches": launches, "sps": sps, "ate_stream": ate_stream,
             "ate": ate_ba, "peak_bytes": peak, "traj": traj,
-            "map_shape": tuple(lo.shape),
+            "map_shape": tuple(lo.shape), "dump": dump,
             "stats": {k: v for k, v in st.__dict__.items()}}
 
 
@@ -1853,7 +1882,6 @@ def bench_phase(dev, card, td, seq) -> dict:
     teapot_batch rows, and gt_init_ba on the 50k-node loop graph, each
     line printed. Returns the kernels' launches per run."""
     from icp_tpu_torch.bench import gt_init_ba, headline, suite
-    from icp_tpu_torch.bench.common import KERNEL_NAMES
 
     t_phase = time.perf_counter()
     line = headline.run(dev, passes=1, engine_only=True, data_dir=td)
@@ -1905,6 +1933,80 @@ def bench_phase(dev, card, td, seq) -> dict:
     solves = {k: sum(ba[f"kernel_launches_{tag}"][name] for tag in ("streamed", "gt"))
               for k, name in KERNEL_NAMES.items()}
     return {"bench_headline": head, "gt_init_ba": solves}
+
+
+def chi2_floor(d) -> float:
+    """The chi2 a pose-graph dump ``d`` cannot resolve in float32: each
+    residual component is a difference of coordinates, each rounded by up
+    to half an ulp of the largest, 2^-24 max |x|; weighted by every edge's
+    information, sum_e tr(Omega_e) (2^-24 max |x|)^2. Phase 12's graph,
+    converged online, sits below it (chi2 9.85e-7 against 2.8e-6), so its
+    terminal solve moves chi2 by rounding alone."""
+    lim = 2.0 ** -24 * float(np.abs(d["nodes"][:, :2]).max())
+    return float(np.trace(d["om"], axis1=1, axis2=2).astype(np.float64).sum()
+                 * lim * lim)
+
+
+def bench_mesh_phase(dev, card, dump) -> dict:
+    """Phase 18: the rest of the bench layer. ``bench.distributed`` at its
+    50,000 nodes on 2 virtual shards of the card (meshes 1 and 2: the
+    2-shard CG step's nodes held to the 1-shard step's), ``bench.scaling``
+    on 2 virtual shards at 40 scans (two lines, the meshes' positions held
+    to each other), and ``bench.gt_init_ba`` on phase 12's graph dump.
+    Returns the kernels' launches in each timed region."""
+    from icp_tpu_torch.bench import distributed, gt_init_ba, scaling
+
+    t_phase = time.perf_counter()
+    line, outs, _ = distributed.main(["--virtual-devices", "2"], env={})
+    steps = list(line["step_ms"].values()) + [line["schur_exact_step_ms"]]
+    gap = float(np.abs(outs[2] - outs[1]).max())
+    log(f"bench.distributed: {line['n_nodes']} nodes, CG step {line['step_ms']} "
+        f"ms by mesh, plans {line['plan_build_ms']} ms, Schur "
+        f"{line['schur_exact_step_ms']:.2f} ms ({line['schur_separators']} "
+        f"separators); max |2 shards - 1 shard| {gap:.3g} on {card}")
+    assert sorted(outs) == [1, 2] and line["virtual_devices"] == 2, line
+    assert np.allclose(outs[2], outs[1], rtol=DIST_RTOL, atol=DIST_ATOL), gap
+    assert all(np.isfinite(t) and t > 0 for t in steps), steps
+    assert line["kernel_launches"]["icp_segment_add"] > 0, line["kernel_launches"]
+
+    runs = scaling.main(["--virtual-devices", "2"], env={
+        "BENCH_SCALING_SCANS": str(SCALING_SCANS), "BENCH_SCALING_MESHES": "1,2"})
+    (l1, p1), (l2, p2) = runs
+    t1, t2 = np.stack(p1.trajectory), np.stack(p2.trajectory)
+    gap_s = float(np.linalg.norm(t1[:, :2, 2] - t2[:, :2, 2], axis=1).max())
+    log(f"bench.scaling: {l1['value']:.2f} / {l2['value']:.2f} scans/s on 1 / "
+        f"2 virtual shards (efficiency {l2['efficiency_vs_smallest']:.3f}, "
+        f"not scaling), GN {l1['gn_step_ms']:.2f} / {l2['gn_step_ms']:.2f} ms; "
+        f"max |2 - 1| position {1e3 * gap_s:.3f} mm (bound "
+        f"{1e3 * SCALING_GAP_M:.0f} mm)")
+    assert [l1["n_devices"], l2["n_devices"]] == [1, 2], (l1, l2)
+    assert "efficiency_vs_smallest" not in l1 and "efficiency_vs_smallest" in l2
+    assert len(t1) == len(t2) == SCALING_SCANS and np.isfinite(t1).all()
+    assert gap_s <= SCALING_GAP_M, f"scaling meshes {gap_s:.5f} m apart"
+
+    graph = np.load(dump)
+    floor = chi2_floor(graph)
+    ba = gt_init_ba.run(dev, graph)
+    print(json.dumps(ba), flush=True)
+    log(f"gt_init_ba on phase 12's dump: {ba['n_nodes']} nodes, chi2 "
+        f"{ba['chi2_streamed_pre']:.6g} -> {ba['chi2_streamed_post']:.6g} "
+        f"(streamed init, {ba['strategy_streamed']}; f32 floor {floor:.3g}), "
+        f"ATE {ba['ate_streamed_init_m']:.4f} m; GT init "
+        f"{ba['ate_gt_init_m']:.4f} m")
+    assert ba["n_nodes"] == SCALED_SCANS, ba["n_nodes"]
+    assert (ba["chi2_streamed_post"]
+            <= ba["chi2_streamed_pre"] * DUMP_CHI2_RAISE + floor), (ba, floor)
+    log(f"rest of the bench layer: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+    def named(counts):
+        return {k: counts[name] for k, name in KERNEL_NAMES.items()}
+
+    return {"bench_distributed": named(line["kernel_launches"]),
+            "bench_scaling": {k: l1["kernel_launches"][n] + l2["kernel_launches"][n]
+                              for k, n in KERNEL_NAMES.items()},
+            "gt_init_ba_scaled_dump": {
+                k: sum(ba[f"kernel_launches_{tag}"][n] for tag in ("streamed", "gt"))
+                for k, n in KERNEL_NAMES.items()}}
 
 
 def main():
@@ -2064,7 +2166,7 @@ def run(td, mesh_only=False):
         icp_large_phase(dev, card)
 
     # ── 12. the scaled pipeline (BASELINE config #5), 400 scans ──────────
-    scaled = scaled_phase(dev, card)
+    scaled = scaled_phase(dev, card, td)
     if not mesh_only:
         scaled_breakdown(dev, card)
 
@@ -2083,6 +2185,8 @@ def run(td, mesh_only=False):
 
     # ── 17. the bench layer ──────────────────────────────────────────────
     launches_bench = bench_phase(dev, card, td, (gt, scans, rels, imu))
+    # ── 18. the rest of the bench layer ──────────────────────────────────
+    launches_bench.update(bench_mesh_phase(dev, card, scaled["dump"]))
 
     # ── 14. the native CSV parser; 15. 3-D ICP and entry() ───────────────
     parser_phase(os.path.join(td, "bench_lidar.csv"))
@@ -2091,7 +2195,7 @@ def run(td, mesh_only=False):
     # ── 8-10. the features path, "both" with loop closure, modular ───────
     launches_feat = features_phases(SlamConfig, ate, dev, card, gt, scans,
                                     rels, imu, ate_m)
-    launches_feat["scaled"] = scaled["launches"]
+    launches_feat["bench_scaled"] = scaled["launches"]
     launches_feat["mesh_engine"] = mesh["engine"]
     launches_feat["mesh_scaled"] = mesh["scaled"]
     launches_feat.update(launches_bench)

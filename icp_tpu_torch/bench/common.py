@@ -5,6 +5,7 @@ counters. ``chip_smoke.py`` imports its configurations from here.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import subprocess
@@ -92,6 +93,54 @@ def resolve_device(name: str = "cuda") -> torch.device:
 def synchronize(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def sync_mesh(mesh) -> None:
+    """``synchronize`` every device of a ``parallel.mesh.Mesh``."""
+    for dev in dict.fromkeys(mesh.devices):
+        synchronize(dev)
+
+
+def add_device_args(ap) -> None:
+    """The mesh entry points' device flags: ``--device`` (default cuda)
+    and ``--virtual-devices N``, the counterpart of XLA's
+    ``--xla_force_host_platform_device_count``."""
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions of the kernels)")
+    ap.add_argument("--virtual-devices", type=int, default=0, metavar="N",
+                    help="run the mesh on N virtual shards of the device "
+                         "(parallel.mesh.set_virtual_devices): correctness "
+                         "and collective overhead, not scaling")
+
+
+@contextlib.contextmanager
+def virtual_shards(n: int, dev: torch.device):
+    """``set_virtual_devices(n, dev)`` for the block (nothing if n is 0),
+    cleared after it. A card without an index means the current one."""
+    from icp_tpu_torch.parallel.mesh import set_virtual_devices
+
+    if not n:
+        yield
+        return
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    set_virtual_devices(n, dev)
+    try:
+        yield
+    finally:
+        set_virtual_devices(0, dev)
+
+
+def reset_peak(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_mb(dev: torch.device):
+    """Peak device memory (MiB) since ``reset_peak``; None on the CPU."""
+    return (torch.cuda.max_memory_allocated(dev) / 2**20
+            if dev.type == "cuda" else None)
 
 
 def sequence_paths(directory: str, n_scans: int = N_SCANS,

@@ -29,7 +29,6 @@ import json
 import time
 
 import numpy as np
-import torch
 
 from icp_tpu_torch.bench import common as C
 
@@ -69,8 +68,7 @@ def timed_solve(pg, n_iterations, dev) -> dict:
     from icp_tpu_torch.utils import spans
 
     C.synchronize(dev)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    C.reset_peak(dev)
     C.reset_counts()
     with spans.record(dev) as spent:
         t0 = time.perf_counter()
@@ -84,8 +82,7 @@ def timed_solve(pg, n_iterations, dev) -> dict:
             "segment_add_launches": counts["segment_add"],
             **C.launch_fields(counts),
             "span_ms": spent,
-            "peak_device_mb": (torch.cuda.max_memory_allocated(dev) / 2**20
-                               if dev.type == "cuda" else None)}
+            "peak_device_mb": C.peak_mb(dev)}
 
 
 def warm_up(dev):

@@ -1,6 +1,6 @@
-"""benchmarks/bench_suite.py's one-card rows on icp_tpu_torch, one JSON line
-a row, each with its original keys plus ``card`` and the kernels' launches
-in its timed region.
+"""benchmarks/bench_suite.py's rows on icp_tpu_torch, one JSON line a row,
+each with its original keys plus ``card`` and the kernels' launches in its
+timed region.
 
     python -m icp_tpu_torch.bench.suite [names...] [--device cuda]
 
@@ -19,29 +19,40 @@ Rows (default: all, in this order):
   features      no IMU: curvature keypoints, descriptors and RANSAC,
                 beside the rotation search;
   icp_large     gated point-to-point ICP at 100k points on the dense grid,
-                beside a SciPy cKDTree ICP of the same iterations.
+                beside a SciPy cKDTree ICP of the same iterations;
+  dist          ``python -m icp_tpu_torch.bench.distributed`` in a
+                subprocess, BENCH_PG_NODES 50000 unless the environment
+                sets it;
+  scaled        ``python -m icp_tpu_torch.bench.scaled`` in a subprocess,
+                BENCH_SCALED_SCANS 600 unless the environment sets it.
 
 The pipeline rows run bench_suite's protocol on the 200 x 720 bench
 sequence (``data/``): 6 single scans, ``warmup``, 3 warm batches, then
 the timed region (full batches; all remaining scans under loop closure).
-``dist`` and ``scaled`` are refused. A row that fails prints its error and
-the suite goes on; the exit code is non-zero if any row failed.
+``dist`` and ``scaled`` get ``--device`` and a 580 s limit; the
+subprocess's last line of output is the row, and a subprocess that fails
+or runs past the limit is the row's error. A row that fails prints its
+error and the suite goes on; the exit code is non-zero if any row failed.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from icp_tpu_torch.bench import common as C
 
-NOT_PORTED = {"dist", "scaled"}
+REPO = Path(__file__).resolve().parents[2]
+SUBPROCESS_TIMEOUT_S = 580
 WARM_SCANS, WARM_BATCHES = 6, 3
 TEAPOT_CAP, TEAPOT_BATCH = 512, 64
 
@@ -285,6 +296,38 @@ def bench_icp_large(dev, seq=None):
             "yaw": got_th, **C.launch_fields(counts)}
 
 
+def run_entry_point(module: str, dev, defaults: dict) -> dict:
+    """``python -m module --device dev`` in a subprocess (the package from
+    this tree, ``defaults`` under the environment), bench_suite's dist /
+    scaled protocol; returns its last line of output. Raises if it fails
+    or runs past SUBPROCESS_TIMEOUT_S."""
+    env = {**defaults, **os.environ}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    out = subprocess.run(
+        [sys.executable, "-m", module, "--device", str(dev)],
+        capture_output=True, text=True, env=env,
+        timeout=SUBPROCESS_TIMEOUT_S)
+    if out.returncode != 0:
+        err = out.stderr.strip().splitlines()
+        raise RuntimeError(f"{module} exited {out.returncode}: "
+                           f"{err[-1] if err else 'no output'}")
+    lines = out.stdout.strip().splitlines()
+    if not lines:
+        raise RuntimeError(f"{module} printed no line")
+    return json.loads(lines[-1])
+
+
+def bench_dist(dev, seq=None):
+    return run_entry_point("icp_tpu_torch.bench.distributed", dev,
+                           {"BENCH_PG_NODES": "50000"})
+
+
+def bench_scaled(dev, seq=None):
+    return run_entry_point("icp_tpu_torch.bench.scaled", dev,
+                           {"BENCH_SCALED_SCANS": "600"})
+
+
 ROWS = {
     "teapot": bench_teapot,
     "teapot_batch": bench_teapot_batch,
@@ -293,6 +336,8 @@ ROWS = {
     "lc": bench_lc,
     "features": bench_features,
     "icp_large": bench_icp_large,
+    "dist": bench_dist,
+    "scaled": bench_scaled,
 }
 NEEDS_SEQUENCE = {"scan2scan", "full", "lc", "features"}
 
@@ -308,9 +353,8 @@ def main(argv=None) -> int:
     failed = []
     for name in names:
         if name not in ROWS:
-            reason = ("not ported yet (ROADMAP Queue 1 items 4-5)"
-                      if name in NOT_PORTED else f"unknown row; rows: {', '.join(ROWS)}")
-            print(json.dumps({"config": name, "error": reason}), flush=True)
+            print(json.dumps({"config": name, "error": f"unknown row; rows: "
+                              f"{', '.join(ROWS)}"}), flush=True)
             failed.append(name)
     if failed:
         return 1

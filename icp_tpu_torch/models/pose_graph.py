@@ -232,6 +232,10 @@ class PoseGraph2D:
         self.last_strategy = None
         # GN iterations the last optimize ran, its LM retries included
         self.last_iterations = 0
+        # the divergence guard over the graph's life (coarse solves' too):
+        # solves saved by an LM retry, and solves rejected
+        self.lm_retries = 0
+        self.rejected_solves = 0
 
     def set_mesh(self, mesh, node_threshold: int = 1024):
         """Solve graphs of ``node_threshold`` nodes and more by the exact
@@ -353,12 +357,14 @@ class PoseGraph2D:
         if best_nodes is not None and best_after < before - 1e-12:
             self._nodes = best_nodes
             self.last_strategy = f"{self.last_strategy}+lm({best_lam:g})"
+            self.lm_retries += 1
             print(f"  [info] GN diverged (chi2 {before:.3g} -> "
                   f"{diverged_to:.3g}); LM retry lambda={best_lam:g} "
                   f"accepted (chi2 -> {best_after:.3g})")
             return
         self._nodes = snapshot
         self.last_strategy = f"{self.last_strategy}+rejected"
+        self.rejected_solves += 1
         print(f"  [warn] pose-graph solve rejected (chi2 "
               f"{before:.3g} -> {diverged_to:.3g}; best damped retry "
               f"{best_after:.3g}); keeping prior estimate")
@@ -444,6 +450,8 @@ class PoseGraph2D:
             # which DCS would suppress; DCS guards the fine polish
             cg.add_edge(a, b, z_ab, self._edges_om[e])
         cg.optimize(n_iterations=30, fix_node=int(sup_of[fix_node]))
+        self.lm_retries += cg.lm_retries
+        self.rejected_solves += cg.rejected_solves
 
         # world-frame correction per supernode, interpolated along segments
         new_sup = np.stack(cg._nodes)

@@ -53,6 +53,12 @@ def set_virtual_devices(n: int, device="cpu") -> None:
         _virtual.pop(device.type, None)
 
 
+def virtual_count(kind: str = "cuda") -> int:
+    """The number of virtual shards ``set_virtual_devices`` put in force
+    for ``kind``'s devices; 0 where none are."""
+    return _virtual.get(torch.device(kind).type, (0, None))[0]
+
+
 def visible_devices(kind: str = "cuda") -> list[torch.device]:
     """This process's devices of ``kind``: the virtual shards if set, else
     every visible card (``cuda``) or the one CPU device (``cpu``)."""

@@ -2,21 +2,23 @@
 
     python3 icp_tpu_torch/tools/ab_throughput.py TREE LABEL
 
-TREE is the root of a checkout (this repository, or an earlier commit
-unpacked with ``git archive``); its ``chip_smoke.py`` and
-``icp_tpu_torch`` are imported, so the same script times either. It runs
-chip_smoke.py's main path (the 200 x 720 bench sequence through
-``SlamEngine``, bench.py's configuration) twice, cold then warm, its
-loop-closure pass (phase 6), phase 7's pose-graph solves at 1,024 nodes
-(dense and PCG, 30 GN iterations) and its phase 12 (the scaled pipeline
-at full width, 400 scans, the terminal BA) with ``time_gn_step`` on its
-graph (Schur and PCG, one shard), and prints one JSON line: scans/s of the
-warm main-path pass and of config #5 after 3 warm scans, both ATEs, the
-largest pose difference between the two main-path passes, the loop-closure
-pass's ``wall_lc_apply`` and ATE, the solves' ms, the GN steps' ms, and the
-card with its power limit. Run it as a file, not with ``-m``: the package
-must come from TREE. Compare two checkouts only within one call on one
-card, in turns (A, B, B, A).
+TREE is the root of a checkout that has ``icp_tpu_torch/bench/headline.py``
+(this repository, or an earlier commit unpacked with ``git archive``); its
+``chip_smoke.py`` and ``icp_tpu_torch`` are imported, so the same script
+times either. It runs two passes of the headline's protocol
+(``bench.headline.run_pass``: bench.py's configuration on the 200 x 720
+bench sequence, scan 0 and 3 warm batches, then the full batches timed),
+chip_smoke.py's loop-closure pass (phase 6), phase 7's pose-graph solves
+at 1,024 nodes (dense and PCG, 30 GN iterations) and its phase 12 (the
+scaled pipeline at full width, 400 scans, the terminal BA) with
+``time_gn_step`` on its graph (Schur and PCG, one shard), and prints one
+JSON line: scans/s of each headline pass (``main_sps_cold`` the first,
+``main_sps_warm`` the second) and of config #5 after 3 warm scans, both
+ATEs, the largest pose difference between the two headline passes, the
+loop-closure pass's ``wall_lc_apply`` and ATE, the solves' ms, the GN
+steps' ms, and the card with its power limit. Run it as a file, not with
+``-m``: the package must come from TREE. Compare two checkouts only
+within one call on one card, in turns (A, B, B, A).
 """
 import json
 import os
@@ -34,6 +36,8 @@ def main(argv=None):
     import torch
 
     import chip_smoke as C
+    from icp_tpu_torch.bench import common as BC
+    from icp_tpu_torch.bench.headline import run_pass
     from icp_tpu_torch.models.pose_graph import PoseGraph2D
     from icp_tpu_torch.utils.config import SlamConfig
     from icp_tpu_torch.utils.metrics import ate
@@ -44,9 +48,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
         gt, scans, rels, imu = C.load_sequence(td)
-        cfg = SlamConfig.from_dict(C.BENCH_CFG)
-        e1, w1 = C.run_engine(cfg, imu, scans, rels, dev)
-        e2, w2 = C.run_engine(cfg, imu, scans, rels, dev)
+        cfg = SlamConfig.from_dict(BC.headline_config())
+        e1, _, sps1, _ = run_pass(cfg, imu, scans, rels, dev)
+        e2, _, sps2, _ = run_pass(cfg, imu, scans, rels, dev)
         t1, t2 = np.stack(e1.pose_trajectory), np.stack(e2.pose_trajectory)
         ate_m = ate(t2[:, :2, 2], gt, indices=e2.pose_scan_indices)
         spread = float(np.abs(t1 - t2).max()) if t1.shape == t2.shape else None
@@ -74,8 +78,8 @@ def main(argv=None):
         pipe.optimize(n_iterations=15)
         ate_s = ate(np.stack(pipe.trajectory), g, gt_offset=0)
     print(json.dumps({"label": label, "card": C.gpu_line(),
-                      "main_sps_warm": (len(scans) - 1) / w2,
-                      "main_sps_cold": (len(scans) - 1) / w1, "main_ate": ate_m,
+                      "main_sps_warm": sps2, "main_sps_cold": sps1,
+                      "main_ate": ate_m,
                       "main_two_pass_max_abs": spread,
                       "lc_wall_lc_apply": e_lc.stats.wall_lc_apply,
                       "lc_ate": ate_lc, "lc_closures": e_lc.stats.loop_closures,

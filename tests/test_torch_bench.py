@@ -1,10 +1,11 @@
 """The bench layer of icp_tpu_torch (``icp_tpu_torch/bench``) on the CPU:
 its import hygiene; the headline's line against an engine driven directly;
 the suite's scan2scan pipeline and teapot batch against icp_tpu's (JAX on
-the CPU); the suite's refusals and its exit code; gt_init_ba's
-streamed-init solve against icp_tpu's on a cut of the 50k-node loop graph;
-the model's time spans; and the kernel guard, which must catch a kernel that differs from its
-plain version.
+the CPU); the suite's refusals, its dist and scaled rows (a subprocess
+each) and its exit code; gt_init_ba's streamed-init solve against
+icp_tpu's on a cut of the 50k-node loop graph; the model's time spans; and
+the kernel guard, which must catch a kernel that differs from its plain
+version.
 
 Small sizes: the bench sequence cut to 40 scans x 180 beams with scan /
 submap capacities 256 / 1024 and batches of 8 (the full size runs on the
@@ -56,7 +57,8 @@ def _env():
 
 
 @pytest.mark.parametrize("module", ["common", "startup", "headline", "suite",
-                                    "gt_init_ba"])
+                                    "gt_init_ba", "scaled", "distributed",
+                                    "scaling"])
 def test_bench_module_imports_no_jax(module):
     """Importing each bench module leaves jax and icp_tpu out of
     sys.modules (the NumPy baseline is loaded only when the headline
@@ -74,7 +76,9 @@ def test_bench_module_imports_no_jax(module):
 @pytest.mark.parametrize("argv", [
     ["icp_tpu_torch.bench.headline"],
     ["icp_tpu_torch.bench.suite", "scan2scan"],
-    ["icp_tpu_torch.bench.gt_init_ba", GRAPH50K]], ids=lambda a: a[0])
+    ["icp_tpu_torch.bench.gt_init_ba", GRAPH50K],
+    ["icp_tpu_torch.bench.scaled"], ["icp_tpu_torch.bench.distributed"],
+    ["icp_tpu_torch.bench.scaling"]], ids=lambda a: a[0])
 def test_entry_point_without_a_card_exits_non_zero(argv):
     """Without a card and without --device cpu each entry point fails and
     names --device cpu: nothing falls back to the CPU."""
@@ -199,19 +203,88 @@ def test_teapot_batch_matches_icp_tpu():
                                    rtol=1e-3, atol=1e-9)
 
 
+class _Subprocess:
+    """Stands in for subprocess.run in the suite: records each call and
+    answers as ``result`` says ("ok": a JSON line, "fail": exit 1 with an
+    error on stderr, "timeout": past the limit)."""
+
+    def __init__(self, result="ok"):
+        self.result, self.calls = result, []
+
+    def __call__(self, argv, *, env, timeout, **kw):
+        self.calls.append({"argv": argv, "env": env, "timeout": timeout})
+        if self.result == "timeout":
+            raise subprocess.TimeoutExpired(argv, timeout)
+        if self.result == "fail":
+            return subprocess.CompletedProcess(argv, 1, "",
+                                               "progress\nValueError: boom\n")
+        return subprocess.CompletedProcess(
+            argv, 0, 'progress on stdout\n{"metric": "m", "value": 1.0}\n', "")
+
+
+SUITE_MODULES = {"dist": ("icp_tpu_torch.bench.distributed",
+                          {"BENCH_PG_NODES": "50000"}),
+                 "scaled": ("icp_tpu_torch.bench.scaled",
+                            {"BENCH_SCALED_SCANS": "600"})}
+
+
 @pytest.mark.parametrize("names", [["dist"], ["scaled"], ["no_such_row"],
                                    ["scan2scan", "dist"]],
                          ids=lambda n: "+".join(n))
-def test_suite_refuses_rows_it_does_not_have(names, capsys):
-    """dist and scaled are refused by name, an unknown row too, before any
-    row runs: the exit code is non-zero."""
-    assert suite.main(names) == 1
+def test_suite_refuses_rows_it_does_not_have(names, monkeypatch, capsys):
+    """An unknown row is refused before any row runs (exit 1); dist and
+    scaled are rows now: each runs its entry point in a subprocess
+    (``python -m`` the module, ``--device`` passed on, this tree on
+    PYTHONPATH, bench_suite.py's size as a default under the environment,
+    the 580 s limit) and its last line of output is the row."""
+    fake = _Subprocess()
+    monkeypatch.setattr(suite.subprocess, "run", fake)
+    monkeypatch.setitem(suite.ROWS, "scan2scan", lambda dev, seq: {"metric": "s"})
+    monkeypatch.setattr(suite, "NEEDS_SEQUENCE", set())
+    monkeypatch.delenv("BENCH_PG_NODES", raising=False)
+    monkeypatch.setenv("BENCH_SCALED_SCANS", "12")     # the environment wins
+    code = suite.main(names + ["--device", "cpu"])
     lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
-    refused = [r for r in lines if "error" in r]
-    assert [r["config"] for r in refused] == [n for n in names if n not in suite.ROWS]
-    for r in refused:
-        if r["config"] in ("dist", "scaled"):
-            assert r["error"] == "not ported yet (ROADMAP Queue 1 items 4-5)"
+    if "no_such_row" in names:
+        assert code == 1 and fake.calls == []
+        assert [r["config"] for r in lines] == ["no_such_row"]
+        assert lines[0]["error"].startswith("unknown row")
+        return
+    assert code == 0
+    assert [r["config"] for r in lines] == names
+    routed = [n for n in names if n in SUITE_MODULES]
+    assert len(fake.calls) == len(routed)
+    for name, call in zip(routed, fake.calls):
+        module, defaults = SUITE_MODULES[name]
+        assert call["argv"][1:] == ["-m", module, "--device", "cpu"]
+        assert call["timeout"] == 580
+        assert call["env"]["PYTHONPATH"].split(os.pathsep)[0] == REPO
+        want = {"BENCH_PG_NODES": "50000"} if name == "dist" \
+            else {"BENCH_SCALED_SCANS": "12"}
+        assert {k: call["env"][k] for k in want} == want
+        row = next(r for r in lines if r["config"] == name)
+        assert row == {"metric": "m", "value": 1.0, "config": name,
+                       "card": C.card_line(torch.device("cpu"))}
+
+
+@pytest.mark.parametrize("result", ["fail", "timeout"])
+@pytest.mark.parametrize("name", ["dist", "scaled"])
+def test_suite_subprocess_failure_is_the_rows_error(name, result, monkeypatch,
+                                                    capsys):
+    """A dist or scaled subprocess that exits non-zero or runs past its
+    limit prints that row's error, the next row still runs, and the suite
+    exits 1."""
+    monkeypatch.setattr(suite.subprocess, "run", _Subprocess(result))
+    monkeypatch.setitem(suite.ROWS, "icp_large", lambda dev, seq: {"metric": "m"})
+    assert suite.main([name, "icp_large", "--device", "cpu"]) == 1
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [r["config"] for r in lines] == [name, "icp_large"]
+    err = lines[0]["error"]
+    if result == "fail":
+        assert err.startswith("RuntimeError") and "ValueError: boom" in err, err
+    else:
+        assert err.startswith("TimeoutExpired"), err
+    assert "error" not in lines[1]
 
 
 def test_suite_goes_on_after_a_failed_row_and_exits_non_zero(monkeypatch, capsys):
