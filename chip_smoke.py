@@ -133,7 +133,20 @@ Phases (any failed check ends the run with a non-zero exit code):
      bench.gt_init_ba on phase 12's graph dump: the streamed-init solve
      raising chi2 by at most 0.1 % (phase 17's bound) plus the chi2 the
      graph cannot resolve in float32 (chi2_floor). Each line printed.
-Phases 11-12, 14-18 run after phase 7 and before phases 8-10, whose
+ 19. the checkpoint path: phase 12's run (config #5, 100k points, 400
+     scans) cut at scan 200 by ScaledPipeline.save_checkpoint, then
+     resumed from that file twice, each time by load_checkpoint into a
+     fresh ScaledPipeline with the scan stream resumed from its saved
+     generator state, through the closure, the online BA and the replay
+     to the end, then optimize(n_iterations=15) as phase 12. Each resumed run against phase 12's straight run:
+     400 poses, the same closures, closure checks and BA runs, the
+     trajectory within 0.05 m RMS (the bound test_torch_scaled.py's
+     cross-package resume holds on the CPU) and ATE <= 0.15 m after the
+     terminal BA; the two resumes bit-equal (trajectory and log-odds map);
+     every kernel launched in the resumed timed region. The checkpoint's
+     size, its save and load seconds and the gap are printed, and go into
+     the summary line.
+Phases 11-12, 14-19 run after phase 7 and before phases 8-10, whose
 torch.profiler window slows what comes after it; phase 13 (profiled
 itself), a profile of 12 scaled scans and the 3-D ICP's launch count come
 last.
@@ -228,6 +241,11 @@ DIST_RTOL, DIST_ATOL = 1e-4, 1e-5
 SCALING_SCANS = 40            # of bench_scaling.py's 120: closes no loop
 SCALING_GAP_M = 1e-2
 DUMP_CHI2_RAISE = 1.001
+# phase 19: phase 12's run cut at RESUME_CUT and resumed; the resumed
+# trajectory held to the straight one within test_torch_scaled.py's bound
+# for a resumed run
+RESUME_CUT = 200
+RESUME_GAP_M = 0.05
 
 
 def log(*a):
@@ -1295,7 +1313,8 @@ def scaled_phase(dev, card, td) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     checks = max(st.lc_checked, 1)
     log(f"scaled pipeline: {len(traj)} poses, {sps:.2f} scans/s after 3 warm "
-        f"scans (host scan generation inside, as bench_scaled.py), "
+        f"scans (host scan generation inside, as bench_scaled.py: "
+        f"{line['stream_ms_per_scan']:.2f} ms a scan, culled), "
         f"{wall:.1f} s for the phase, on {card}")
     log(f"  ATE {ate_stream:.4f} m streaming -> {ate_ba:.4f} m after the "
         f"terminal BA (bound {SCALED_ATE_BOUND_M} m); loop_closures="
@@ -2009,6 +2028,100 @@ def bench_mesh_phase(dev, card, dump) -> dict:
                 for k, n in KERNEL_NAMES.items()}}
 
 
+def resume_phase(dev, card, td, base, n_points=100_000) -> dict:
+    """Phase 19: phase 12's run cut at RESUME_CUT by ``save_checkpoint``
+    and resumed twice from the one file, each time by ``load_checkpoint``
+    into a fresh ``ScaledPipeline`` with the scan stream resumed from its
+    saved generator state. ``base`` is phase 12's result. Returns the
+    resumed timed region's launches and the summary's figures."""
+    from icp_tpu_torch.bench import scaled as BS
+    from icp_tpu_torch.parallel.mesh import make_mesh
+    from icp_tpu_torch.parallel.scaled import ScaledPipeline
+    from icp_tpu_torch.utils.metrics import ate
+
+    t_phase = time.perf_counter()
+    kw = BS.pipeline_kwargs(SCALED_SCANS, n_points, env={})
+    mesh = make_mesh(1, device=dev)        # as phase 12's bench.scaled run
+    path = os.path.join(td, "resume.npz")
+    pipe = ScaledPipeline(mesh, **kw)
+    pipe.warm_replay()
+    stream = BS.scan_stream(SCALED_SCANS, n_points)
+    for _ in range(RESUME_CUT):
+        pipe.step(next(stream)[0])
+    t0 = time.perf_counter()
+    pipe.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    ckpt_mb = os.path.getsize(path) / 2**20
+    state, gt = stream.state, stream.gt
+    del pipe
+    log(f"resume phase: scans 0-{RESUME_CUT - 1}, checkpoint {ckpt_mb:.2f} "
+        f"MiB written in {save_s:.3f} s")
+    st0, want = base["stats"], base["traj"][:, :2, 2]
+    runs = []
+    for n in (1, 2):
+        pipe = ScaledPipeline(mesh, **kw)
+        t0 = time.perf_counter()
+        pipe.load_checkpoint(path)
+        load_s = time.perf_counter() - t0
+        assert len(pipe.trajectory) == pipe.stats.scans == RESUME_CUT
+        pipe.warm_replay()
+        pipe.log_odds[:1, :1].cpu()
+        reset_counts()
+        t0 = time.perf_counter()
+        for scan, _ in BS.scan_stream(SCALED_SCANS, n_points,
+                                      start=RESUME_CUT, rng_state=state):
+            pipe.step(scan)
+        pipe.finish()
+        pipe.log_odds[:1, :1].cpu()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        ate_stream = ate(np.stack(pipe.trajectory)[:, :2, 2], gt,
+                         gt_offset=0)
+        pipe.optimize(n_iterations=15)
+        traj = np.stack(pipe.trajectory)
+        ate_ba = ate(traj[:, :2, 2], gt, gt_offset=0)
+        st = pipe.stats
+        got = {"loop_closures": st.loop_closures, "lc_checked": st.lc_checked,
+               "ba_runs": st.ba_runs}
+        gap = (float(np.sqrt(np.mean(np.sum((traj[:, :2, 2] - want) ** 2,
+                                             axis=1))))
+               if traj.shape == base["traj"].shape else float("inf"))
+        log(f"  resume {n}: scans {RESUME_CUT}-{SCALED_SCANS - 1} in a fresh "
+            f"pipeline, checkpoint loaded in {load_s:.3f} s; {got} (phase "
+            f"12: closures {st0['loop_closures']}, checks "
+            f"{st0['lc_checked']}, BA runs {st0['ba_runs']}); trajectory "
+            f"{1e3 * gap:.3f} mm RMS from phase 12's (bound "
+            f"{1e3 * RESUME_GAP_M:.0f} mm); ATE {ate_stream:.4f} -> "
+            f"{ate_ba:.4f} m; {(SCALED_SCANS - RESUME_CUT) / wall:.2f} "
+            f"scans/s (no warm scan); launches in the resumed region "
+            f"{launches}; LM retries {pipe.pose_graph.lm_retries}")
+        assert len(traj) == SCALED_SCANS, len(traj)
+        assert np.isfinite(traj).all(), "non-finite pose (resumed)"
+        assert not pipe._map_dirty, "map still dirty after optimize (resumed)"
+        assert got == {"loop_closures": st0["loop_closures"],
+                       "lc_checked": st0["lc_checked"],
+                       "ba_runs": st0["ba_runs"]}, (got, st0)
+        assert gap <= RESUME_GAP_M, f"resumed run {gap:.5f} m RMS from phase 12"
+        assert ate_ba <= SCALED_ATE_BOUND_M, ate_ba
+        assert all_launched(launches), launches
+        runs.append({"traj": traj, "lo": pipe.log_odds.cpu(), "gap": gap,
+                     "load_s": load_s, "ate": ate_ba, "launches": launches})
+        del pipe
+    r1, r2 = runs
+    same = (np.array_equal(r1["traj"], r2["traj"])
+            and torch.equal(r1["lo"], r2["lo"]))
+    log(f"  the two resumes bit-equal (trajectory and log-odds map): {same}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    assert same, "two resumes of one checkpoint differ"
+    return {"launches": r1["launches"],
+            "summary": {"cut": RESUME_CUT, "ckpt_mb": ckpt_mb,
+                        "ckpt_save_s": save_s,
+                        "ckpt_load_s": [r["load_s"] for r in runs],
+                        "gap_rms_m": [r["gap"] for r in runs],
+                        "ate_m": [r["ate"] for r in runs],
+                        "resumes_bit_equal": same}}
+
+
 def main():
     mesh_only = sys.argv[1:] == ["--mesh"]
     if sys.argv[1:] and not mesh_only:
@@ -2187,6 +2300,9 @@ def run(td, mesh_only=False):
     launches_bench = bench_phase(dev, card, td, (gt, scans, rels, imu))
     # ── 18. the rest of the bench layer ──────────────────────────────────
     launches_bench.update(bench_mesh_phase(dev, card, scaled["dump"]))
+    # ── 19. the checkpoint path: phase 12 cut and resumed ────────────────
+    resumed = resume_phase(dev, card, td, scaled)
+    launches_bench["bench_scaled_resumed"] = resumed["launches"]
 
     # ── 14. the native CSV parser; 15. 3-D ICP and entry() ───────────────
     parser_phase(os.path.join(td, "bench_lidar.csv"))
@@ -2263,7 +2379,8 @@ def run(td, mesh_only=False):
         "library_ms": top["library_ms"],
         "library_device_ms": top["library_device_ms"], "shapes": seg})
     print(card, flush=True)       # as nvidia-smi gives it: name, power limit
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "resume": resumed["summary"]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -104,44 +104,117 @@ def make_dense_world(rng, n_points=1_000_000, extent=100.0, n_walls=220):
     return np.clip(cloud, -extent, extent)
 
 
-def large_scan_stream(n_scans, n_points=100_000, extent=100.0,
-                      max_range=35.0, noise=0.02, seed=0,
-                      world_points=None, trajectory="loop"):
-    """Generator of (scan, gt_pose) for the scaled pipeline: each scan is
+class _BlockCull:
+    """The world's points in runs of ``RUN`` consecutive indices, each
+    run with its bounding box: a query within radius r reads only the runs
+    whose box lies within r, so the distance pass covers a fraction of the
+    world. The points it selects, their order and their distances are the
+    full pass's, bit for bit (the coordinates are widened to float64
+    exactly, and dx * dx + dy * dy is the two-term sum the full pass
+    takes)."""
+
+    RUN = 256        # 0.5-2 m of a dense-world wall: tight boxes, few runs
+
+    def __init__(self, world: np.ndarray):
+        self.world = world
+        pad = -len(world) % self.RUN
+        w = (np.concatenate([world, np.repeat(world[-1:], pad, 0)])
+             if pad else world).astype(np.float64)
+        self.x = w[:, 0].reshape(-1, self.RUN)
+        self.y = w[:, 1].reshape(-1, self.RUN)
+        self.lo = np.stack([self.x.min(axis=1), self.y.min(axis=1)], 1)
+        self.hi = np.stack([self.x.max(axis=1), self.y.max(axis=1)], 1)
+
+    def near(self, pos: np.ndarray, r2: float):
+        """The ascending indices of the points whose squared distance to
+        ``pos`` (float64) is below ``r2``; where there is none, the
+        nearest point's index."""
+        dx = np.maximum(np.maximum(self.lo[:, 0] - pos[0],
+                                   pos[0] - self.hi[:, 0]), 0.0)
+        dy = np.maximum(np.maximum(self.lo[:, 1] - pos[1],
+                                   pos[1] - self.hi[:, 1]), 0.0)
+        # a box's distance is a lower bound of its points'; the margin
+        # covers the rounding of both
+        runs = np.flatnonzero(dx * dx + dy * dy <= r2 * (1.0 + 1e-6))
+        x = self.x[runs].reshape(-1) - pos[0]
+        y = self.y[runs].reshape(-1) - pos[1]
+        idx = (runs[:, None] * self.RUN + np.arange(self.RUN)).reshape(-1)
+        near = idx[(x * x + y * y < r2) & (idx < len(self.world))]
+        if near.size == 0:
+            d2 = np.sum((self.world - pos) ** 2, axis=1)
+            near = np.array([int(np.argmin(d2))])
+        return near
+
+
+class LargeScanStream:
+    """Iterator of (scan, gt_pose) for the scaled pipeline: each scan is
     ``n_points`` sensor-frame points sampled (with replacement) from the
     dense world within ``max_range`` of the pose. Ground truth is a loop
     (an ellipse, or with ``trajectory="eight"`` a self-intersecting
     lemniscate) sized to the arena, so loop closures are real. Scans are
-    made lazily, one at a time.
-    """
-    rng = np.random.default_rng(seed)
-    world = (make_dense_world(rng, extent=extent)
-             if world_points is None else world_points)
-    s = np.linspace(0, 2 * np.pi, n_scans)
-    rad = extent * 0.55
-    if trajectory == "eight":
-        den = 1.0 + np.sin(s) ** 2
-        x = rad * np.cos(s) / den
-        y = rad * 0.9 * np.sin(s) * np.cos(s) / den
-    else:
-        x = rad * np.cos(s - np.pi / 2)
-        y = rad * 0.8 * np.sin(s - np.pi / 2)
-    yaw = np.arctan2(np.gradient(y), np.gradient(x))
-    gt = np.stack([x, y, yaw], axis=1)
+    made one at a time, all from one sequential generator.
 
-    for k in range(n_scans):
-        pos = gt[k, :2]
-        d2 = np.sum((world - pos) ** 2, axis=1)
-        near = np.flatnonzero(d2 < max_range * max_range)
-        if near.size == 0:
-            near = np.array([int(np.argmin(d2))])
-        pick = near[rng.integers(0, near.size, n_points)]
-        pts_w = world[pick]
-        c, si = np.cos(gt[k, 2]), np.sin(gt[k, 2])
+    Resuming: ``start`` is the first scan to yield; ``rng_state`` the
+    generator's ``state`` saved after scan ``start - 1`` was taken (the
+    world is rebuilt from ``seed`` first). With ``start`` and no state the
+    first ``start`` scans are drawn and discarded. Either way the scans and
+    ground truth from ``start`` on are byte-equal to a stream from 0.
+    """
+
+    def __init__(self, n_scans, n_points=100_000, extent=100.0,
+                 max_range=35.0, noise=0.02, seed=0, world_points=None,
+                 trajectory="loop", start=0, rng_state=None):
+        self.n_scans, self.n_points = int(n_scans), int(n_points)
+        self.r2, self.noise = max_range * max_range, noise
+        self.rng = np.random.default_rng(seed)
+        world = (make_dense_world(self.rng, extent=extent)
+                 if world_points is None else world_points)
+        self._cull = _BlockCull(world)
+        s = np.linspace(0, 2 * np.pi, self.n_scans)
+        rad = extent * 0.55
+        if trajectory == "eight":
+            den = 1.0 + np.sin(s) ** 2
+            x = rad * np.cos(s) / den
+            y = rad * 0.9 * np.sin(s) * np.cos(s) / den
+        else:
+            x = rad * np.cos(s - np.pi / 2)
+            y = rad * 0.8 * np.sin(s - np.pi / 2)
+        yaw = np.arctan2(np.gradient(y), np.gradient(x))
+        self.gt = np.stack([x, y, yaw], axis=1)
+        self.position = 0
+        if rng_state is not None:
+            self.rng.bit_generator.state = rng_state
+            self.position = int(start)
+        else:
+            for _ in range(int(start)):
+                next(self)
+
+    @property
+    def state(self) -> dict:
+        """The generator's state after the last scan taken."""
+        return self.rng.bit_generator.state
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        k = self.position
+        if k >= self.n_scans:
+            raise StopIteration
+        pos = self.gt[k, :2]
+        near = self._cull.near(pos, self.r2)
+        pick = near[self.rng.integers(0, near.size, self.n_points)]
+        pts_w = self._cull.world[pick]
+        c, si = np.cos(self.gt[k, 2]), np.sin(self.gt[k, 2])
         Rwt = np.array([[c, si], [-si, c]], np.float32)   # world->sensor
         pts_s = (pts_w - pos.astype(np.float32)) @ Rwt.T
-        pts_s = pts_s + rng.normal(scale=noise, size=pts_s.shape)
-        yield pts_s.astype(np.float32), gt[k]
+        pts_s = pts_s + self.rng.normal(scale=self.noise, size=pts_s.shape)
+        self.position = k + 1
+        return pts_s.astype(np.float32), self.gt[k]
+
+
+# icp_tpu's name: a generator function there
+large_scan_stream = LargeScanStream
 
 
 def generate_sequence(
