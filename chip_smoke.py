@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --mesh     # phase 16 and phases 4-6 and 12 it
                                      # is held against (on 1-4 cards)
+    python3 chip_smoke.py --syncs    # phases 1-2 and 20
 
 Phases (any failed check ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -146,7 +147,16 @@ Phases (any failed check ends the run with a non-zero exit code):
      every kernel launched in the resumed timed region. The checkpoint's
      size, its save and load seconds and the gap are printed, and go into
      the summary line.
-Phases 11-12, 14-19 run after phase 7 and before phases 8-10, whose
+ 20. every host-device sync counted where it is made: phase 6's path
+     (the bench sequence with loop closure, one closure; scan 0 to
+     finish) and 64 steps of phase 12's pipeline, each under a live
+     ``utils.spans`` record with torch.cuda.set_sync_debug_mode("warn"):
+     the sum of the ``sync.*`` counters equal to torch's sync warnings,
+     less the event waits torch does not flag (``sync.scaled.drain_wait``);
+     both tables printed by site. Then the cost of the spans and counters
+     with nothing recording: one span and one count timed off, times the
+     spans and counts a scan made, against a scan's host time unrecorded.
+Phases 11-12, 14-20 run after phase 7 and before phases 8-10, whose
 torch.profiler window slows what comes after it; phase 13 (profiled
 itself), a profile of 12 scaled scans and the 3-D ICP's launch count come
 last.
@@ -1936,8 +1946,8 @@ def bench_phase(dev, card, td, seq) -> dict:
         f"(range {GT_INIT_DROP_RANGE}); ATE streamed {ba['ate_streamed_init_m']:.4f} m "
         f"(icp_tpu {GT_INIT_CPU['ate_streamed_init_m']}), GT init "
         f"{ba['ate_gt_init_m']:.4f} m; plan builds "
-        f"{ba['span_ms_streamed'].get('segment_plan', 0.0):.3f} / "
-        f"{ba['span_ms_gt'].get('segment_plan', 0.0):.3f} ms a solve")
+        f"{ba['span_ms_streamed'].get('scatter.segment_plan', 0.0):.3f} / "
+        f"{ba['span_ms_gt'].get('scatter.segment_plan', 0.0):.3f} ms a solve")
     assert abs(rel["chi2_streamed_post"]) <= GT_INIT_CHI2_RTOL, rel
     assert GT_INIT_DROP_RANGE[0] <= drop <= GT_INIT_DROP_RANGE[1], ("drop", drop)
     assert ba["chi2_streamed_post"] <= ba["chi2_streamed_pre"] * 1.001, ba
@@ -2122,22 +2132,174 @@ def resume_phase(dev, card, td, base, n_points=100_000) -> dict:
                         "resumes_bit_equal": same}}
 
 
+def _program_site() -> str:
+    """The innermost line of icp_tpu_torch on the stack."""
+    import traceback
+    for f in reversed(traceback.extract_stack()):
+        if os.sep + "icp_tpu_torch" + os.sep in f.filename:
+            rel = f.filename.split(os.sep + "icp_tpu_torch" + os.sep)[-1]
+            return f"icp_tpu_torch/{rel}:{f.lineno}"
+    return "outside icp_tpu_torch"
+
+
+def counted_syncs(dev, fn):
+    """``fn()`` under a live spans record with torch's sync debug mode on;
+    returns (the record's totals, torch's sync warnings by program site)."""
+    import collections
+    import warnings
+
+    from icp_tpu_torch.utils import spans
+
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            site = _program_site()
+            if site == "outside icp_tpu_torch":
+                import traceback
+                site += ": " + " < ".join(
+                    f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                    for f in reversed(traceback.extract_stack()[-12:-1]))
+            sites[site] += 1
+
+    torch.cuda.synchronize(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        with spans.record(dev) as spent:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    return spent.record, sites
+
+
+# syncs that torch's debug mode does not flag: an event's wait
+UNFLAGGED_SYNCS = ("sync.scaled.drain_wait",)
+
+
+def sync_phase(dev, card, lc_cfg, imu, scans, rels) -> dict:
+    """Phase 20: the sync counters against torch's sync warnings on both
+    cells' paths, and the spans' and counters' cost when off."""
+    from icp_tpu_torch.engine import SlamEngine
+    from icp_tpu_torch.utils import spans
+
+    out = {}
+    eng = None
+
+    def engine_log():
+        eng.process_scan(scans[0], rels[0])
+        for k in range(1, len(scans), BATCH):
+            eng.process_scans_batched(scans[k:k + BATCH], rels[k:k + BATCH])
+        eng.finish()
+
+    # one unrecorded log for the scan's host time, then the recorded one
+    walls = []
+    for _ in range(2):
+        eng = SlamEngine(lc_cfg, imu=imu, verbose=False, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        engine_log()
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    eng = SlamEngine(lc_cfg, imu=imu, verbose=False, device=dev)
+    rec_e, sites_e = counted_syncs(dev, engine_log)
+    closures = eng.stats.loop_closures
+
+    pipe, stream = make_scaled(dev)
+    steps = [scan for _, (scan, _g) in zip(range(64), stream)]
+
+    def scaled_steps():
+        for scan in steps:
+            pipe.step(scan)
+        pipe.finish()
+
+    rec_s, sites_s = counted_syncs(dev, scaled_steps)
+    for path, rec, sites, n in (("engine", rec_e, sites_e, len(scans)),
+                                ("scaled", rec_s, sites_s, len(steps))):
+        counts = {k: v for k, v in rec.totals()["counts"].items()
+                  if k.startswith("sync.")}
+        flagged = sum(v for k, v in counts.items()
+                      if k not in UNFLAGGED_SYNCS)
+        warned = sum(sites.values())
+        log(f"syncs, {path} path ({n} scans): sync.* counters {counts} "
+            f"(sum {sum(counts.values())}, {flagged} of them torch flags); "
+            f"torch's sync warnings by site {dict(sorted(sites.items()))} "
+            f"(sum {warned}); {flagged / n:.2f} flagged syncs a scan")
+        out[path] = {"counted": sum(counts.values()), "flagged": flagged,
+                     "warned": warned, "per_scan": sum(counts.values()) / n}
+    assert closures >= 1, "the recorded engine log closed no loop"
+    for path in ("engine", "scaled"):
+        assert out[path]["flagged"] == out[path]["warned"], (path, out[path])
+
+    # the cost when off: spans and counts a scan (the recorded log's),
+    # each at its off-path time, against the unrecorded log's scan
+    n_span = sum(s["calls"] for s in rec_e.totals()["spans"].values())
+    n_count = rec_e.adds
+    reps = 200_000
+    sp = spans.span("smoke.off")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with sp:
+            pass
+    span_us = 1e6 * (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        spans.count("smoke.off")
+    count_us = 1e6 * (time.perf_counter() - t0) / reps
+    scan_us = 1e6 * min(walls) / len(scans)
+    off_us = (n_span * span_us + n_count * count_us) / len(scans)
+    log(f"spans off: {span_us:.3f} us a span, {count_us:.3f} us a count; "
+        f"{n_span / len(scans):.1f} spans and {n_count / len(scans):.1f} "
+        f"counts a scan, so {off_us:.2f} us of a {scan_us:.0f} us scan "
+        f"({100 * off_us / scan_us:.4f} %) on {card}")
+    # and on: a live record's span (two CUDA events) and count
+    reps = 20_000
+    with spans.record(dev):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with sp:
+                pass
+        on_span_us = 1e6 * (time.perf_counter() - t0) / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            spans.count("smoke.on")
+        on_count_us = 1e6 * (time.perf_counter() - t0) / reps
+    log(f"spans on: {on_span_us:.3f} us a span, {on_count_us:.3f} us a "
+        f"count on {card}")
+    assert off_us < 1e-3 * scan_us, (off_us, scan_us)
+    out["off_pct"] = 100 * off_us / scan_us
+    return out
+
+
 def main():
     mesh_only = sys.argv[1:] == ["--mesh"]
-    if sys.argv[1:] and not mesh_only:
-        sys.exit("usage: python3 chip_smoke.py [--mesh]")
+    syncs_only = sys.argv[1:] == ["--syncs"]
+    if sys.argv[1:] and not (mesh_only or syncs_only):
+        sys.exit("usage: python3 chip_smoke.py [--mesh | --syncs]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke test needs a CUDA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     with tempfile.TemporaryDirectory() as td:
-        run(td, mesh_only)
+        run(td, mesh_only, syncs_only)
 
 
-def run(td, mesh_only=False):
+def lc_config(n_scans):
+    """Phase 6's configuration: the bench's with loop closure."""
+    from icp_tpu_torch.utils.config import SlamConfig
+
+    lc_cfg = SlamConfig.from_dict(dict(BENCH_CFG, loop_closure=LC_SECTION))
+    lc_cfg.num_scans = n_scans      # as bench_suite sets it
+    return lc_cfg
+
+
+def run(td, mesh_only=False, syncs_only=False):
     """Every phase, or with ``mesh_only`` phase 16 and the phases it is
-    held against (4-6 without the kernel timings, 12); ``td`` holds the
-    bench CSVs and what phase 13 writes."""
+    held against (4-6 without the kernel timings, 12), or with
+    ``syncs_only`` phase 20; ``td`` holds the bench CSVs and what phase 13
+    writes."""
     from icp_tpu_torch.engine import SlamEngine
     from icp_tpu_torch.ops.hopper import build
     from icp_tpu_torch.utils.config import SlamConfig
@@ -2164,6 +2326,13 @@ def run(td, mesh_only=False):
     gt, scans, rels, imu = load_sequence(td)
     log(f"sequence: {len(scans)} scans, mean "
         f"{np.mean([len(s) for s in scans]):.0f} points")
+    if syncs_only:
+        syncs = sync_phase(dev, card, lc_config(len(scans)), imu, scans,
+                           rels)
+        print(json.dumps({"ok": True, "syncs": syncs, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     cfg = SlamConfig.from_dict(BENCH_CFG)
     # the sweep caps every path sizes from the first scan
     probe_eng = SlamEngine(cfg, verbose=False, device=dev)
@@ -2233,9 +2402,7 @@ def run(td, mesh_only=False):
         timings["segment_add"] = time_segment_add(dev, seg_cases, card)
 
     # ── 6. the loop-closure path ─────────────────────────────────────────
-    lc_dict = dict(BENCH_CFG, loop_closure=LC_SECTION)
-    lc_cfg = SlamConfig.from_dict(lc_dict)
-    lc_cfg.num_scans = len(scans)      # as bench_suite sets it
+    lc_cfg = lc_config(len(scans))
     reset_counts()
     eng_lc, wall_lc = run_engine(lc_cfg, imu, scans, rels, dev, warmup=True)
     launches_lc = read_counts()
@@ -2303,6 +2470,8 @@ def run(td, mesh_only=False):
     # ── 19. the checkpoint path: phase 12 cut and resumed ────────────────
     resumed = resume_phase(dev, card, td, scaled)
     launches_bench["bench_scaled_resumed"] = resumed["launches"]
+    # ── 20. the sync counters against torch's sync warnings ─────────────
+    sync_phase(dev, card, lc_cfg, imu, scans, rels)
 
     # ── 14. the native CSV parser; 15. 3-D ICP and entry() ───────────────
     parser_phase(os.path.join(td, "bench_lidar.csv"))

@@ -13,10 +13,11 @@ each, the strategy each took) plus ``card``, each solve's wall ms (device
 synchronized), GN iterations (``last_iterations``), segment plans built,
 each kernel's launches (``kernel_launches``; ``segment_add_launches``
 too), peak device memory, the graph's load time and, per solve, the
-model's spans (``utils.spans``: the coarse supernode solve, packing, the
-PCG's GN steps, writing the nodes back, the chi2 evaluations of the
-divergence guard, the segment plan builds), recorded with CUDA events and
-no synchronize inside the solve.
+model's spans (``utils.spans``, ``pose_graph.*``: the solve as a whole,
+the coarse supernode solve, packing, the PCG's GN steps, writing the nodes
+back, the chi2 evaluations of the divergence guard; and
+``scatter.segment_plan``, the segment plan builds), recorded with CUDA
+events and no synchronize inside the solve.
 
 If the GT-init solve lands materially below the streamed one in ATE, the
 streamed solve has solver slack; if they agree, the residual is the

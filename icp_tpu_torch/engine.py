@@ -59,6 +59,7 @@ from icp_tpu_torch.ops.voxel import voxel_downsample_fixed
 from icp_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from icp_tpu_torch.services.imu import IMUService
 from icp_tpu_torch.services.lidar import LidarService
+from icp_tpu_torch.utils import spans
 from icp_tpu_torch.utils.config import SlamConfig
 from icp_tpu_torch.utils.masking import next_pow2
 from icp_tpu_torch.utils.se2 import pose_to_vec_np
@@ -289,6 +290,7 @@ class SlamEngine:
                       f"marking truncated (counted in stats)")
 
     # ── modular path: registration front end (reference slam.py:53-98) ──
+    @spans.spanned("engine.prealign")
     def _prealign(self, sp, sm, tp, tm):
         """Initial (R, t) of source onto target by the configured method:
         rotation search, then (features, both) feature alignment on the
@@ -418,6 +420,7 @@ class SlamEngine:
         cand.sort(key=lambda x: x[1])
         return cand[: cfg.lc_max_candidates]
 
+    @spans.spanned("map.replay")
     def _rebuild_map(self):
         """Replay every keyframe at its current pose (reference
         slam.py:271-277) into a new grid bound to ``mapper.log_odds``.
@@ -440,6 +443,7 @@ class SlamEngine:
                 rec.points @ rec.pose[:2, :2].T + rec.pose[:2, 2], cap)
         self.mapper.replay(origins, hits, masks)
 
+    @spans.spanned("engine.lc_verify")
     def _lc_verify_pairs(self, pairs):
         """Verify (source scan, candidate scan) registration pairs.
 
@@ -470,6 +474,7 @@ class SlamEngine:
             lanes = self.mesh.devices
         self.stats.lc_groups += -(-len(pairs) // L)
         res = []
+        spans.count("sync.engine.upload", 4 * len(pairs))
         for k, (src, cand) in enumerate(pairs):
             dev = lanes[k % len(lanes)]
             sp, sm, cp, cm = (torch.as_tensor(a, device=dev) for a in (
@@ -484,6 +489,7 @@ class SlamEngine:
                 error_threshold=cfg.icp_error_threshold,
                 nn_impl=str(cfg.nn_impl),
             ))
+        spans.count("sync.engine.lc_read", 4 * len(res))
         return [(r.R.cpu().numpy(), r.t.cpu().numpy(), float(r.error),
                  int(r.iters)) for r in res]
 
@@ -502,7 +508,8 @@ class SlamEngine:
         if (cfg.lc_cooldown > 0 and self._last_lc_accept is not None
                 and cur_idx - self._last_lc_accept < cfg.lc_cooldown):
             return None
-        candidates = self._find_loop_candidates(cur_idx, cur_xy)
+        with spans.span("engine.lc_gates"):
+            candidates = self._find_loop_candidates(cur_idx, cur_xy)
         if not candidates:
             return None
         if self.verbose:
@@ -569,7 +576,8 @@ class SlamEngine:
         found = self._lc_find(points, cur_idx, cur_xy)
         if found is None:
             return False
-        self._lc_apply(cur_idx, *found)
+        with spans.span("engine.lc_apply"):
+            self._lc_apply(cur_idx, *found)
         return True
 
     def _resync_state_after_lc(self, points_2d: np.ndarray):
@@ -595,8 +603,7 @@ class SlamEngine:
         self._state = SlamState(
             prev_pts=sp, prev_mask=sm, global_pose=gpose,
             ring_pts=rp, ring_mask=rm,
-            ring_idx=torch.tensor(len(recent), dtype=torch.int32,
-                                  device=self.device),
+            ring_idx=self._upload_scalar(len(recent), torch.int32),
             log_odds=self._state.log_odds,
             feat=feat, feat_valid=feat_valid, gen=self._state.gen,
         )
@@ -653,7 +660,12 @@ class SlamEngine:
                                  feat_shapes=self._feat_shapes)
 
     def _to_device(self, *arrays):
+        spans.count("sync.engine.upload", len(arrays))
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
+
+    def _upload_scalar(self, value, dtype):
+        spans.count("sync.engine.upload")
+        return torch.tensor(value, dtype=dtype, device=self.device)
 
     def sync_map(self):
         """Bring the mapper up to date (for export).
@@ -779,7 +791,7 @@ class SlamEngine:
         """
         cfg = self.cfg
         t_f = time.perf_counter()
-        outs = type(outs_dev)(*(f.cpu().numpy() for f in outs_dev))
+        outs = self._fetch(outs_dev)
         self.stats.wall_fetch += time.perf_counter() - t_f
         self._check_sub_saturation(outs.sub_n)
         self._check_sweep_drop(outs.sweep_drop)
@@ -790,35 +802,37 @@ class SlamEngine:
         t2 = time.perf_counter()
         verdicts_by_j: dict[int, tuple] = {}
         n_hist = len(self.scan_history)
-        hist_xy = (
-            np.stack([r.pose[:2, 2] for r in self.scan_history])
-            if n_hist else np.zeros((0, 2), np.float32)
-        )
-        chunk_nodes = []               # (chunk pos j, node idx, position)
-        k = n_hist
-        for j in range(n):
-            if not acc[j]:
-                continue
-            chunk_nodes.append(
-                (j, k, np.asarray(outs.pose[j][:2, 2], np.float32))
+        with spans.span("engine.lc_gates"):
+            hist_xy = (
+                np.stack([r.pose[:2, 2] for r in self.scan_history])
+                if n_hist else np.zeros((0, 2), np.float32)
             )
-            k += 1
-        jobs = []                      # (j, node_idx, candidates)
-        if chunk_nodes:
-            all_xy = np.concatenate(
-                [hist_xy] + [xy[None] for _, _, xy in chunk_nodes]
-            )
-            for j, ni, _ in chunk_nodes:
-                if ni < cfg.lc_min_interval:
+            chunk_nodes = []           # (chunk pos j, node idx, position)
+            k = n_hist
+            for j in range(n):
+                if not acc[j]:
                     continue
-                if (cfg.lc_cooldown > 0 and self._last_lc_accept is not None
-                        and ni - self._last_lc_accept < cfg.lc_cooldown):
-                    # in-chunk accepts roll back, so the pre-chunk accept
-                    # is the cooldown reference of every node
-                    continue
-                cands = self._gate_candidates(all_xy[: ni + 1], ni)
-                if cands:
-                    jobs.append((j, ni, cands))
+                chunk_nodes.append(
+                    (j, k, np.asarray(outs.pose[j][:2, 2], np.float32))
+                )
+                k += 1
+            jobs = []                  # (j, node_idx, candidates)
+            if chunk_nodes:
+                all_xy = np.concatenate(
+                    [hist_xy] + [xy[None] for _, _, xy in chunk_nodes]
+                )
+                for j, ni, _ in chunk_nodes:
+                    if ni < cfg.lc_min_interval:
+                        continue
+                    if (cfg.lc_cooldown > 0
+                            and self._last_lc_accept is not None
+                            and ni - self._last_lc_accept < cfg.lc_cooldown):
+                        # in-chunk accepts roll back, so the pre-chunk
+                        # accept is the cooldown reference of every node
+                        continue
+                    cands = self._gate_candidates(all_xy[: ni + 1], ni)
+                    if cands:
+                        jobs.append((j, ni, cands))
         if jobs:
             pts_of = {ni: chunk_s[j] for j, ni, _ in chunk_nodes}
 
@@ -843,49 +857,61 @@ class SlamEngine:
 
         # ── bookkeeping + the reference's per-scan arbitration ───────────
         n_ok = 0
-        for j in range(n):
-            t_b = time.perf_counter()
-            ok = self._bookkeep_fused(
-                chunk_s[j],
-                np.asarray(outs.pose[j]), float(outs.error[j]),
-                acc[j], bool(outs.sub_applied[j]),
-                float(outs.err_inc[j]), int(outs.iters[j]),
-            )
-            self.prev_points = chunk_s[j]
-            self.prev_rel_time = chunk_r[j]
-            self.stats.wall_bookkeep += time.perf_counter() - t_b
-            n_ok += bool(ok)
-            if not ok or j not in verdicts_by_j:
-                continue
-            ni, cands, verds = verdicts_by_j[j]
-            t2 = time.perf_counter()
-            if self.verbose:
-                print(f"  LC candidates for scan {ni}: "
-                      + ", ".join(f"#{ci}({cd:.1f}m)" for ci, cd in cands))
-            hit = None
-            for kk, (ci, cd) in enumerate(cands):
-                r_lc, t_lc, err_lc, it_lc = verds[kk]
-                self.stats.icp_iters += it_lc
+        hit = None
+        with spans.span("engine.bookkeep"):
+            for j in range(n):
+                t_b = time.perf_counter()
+                ok = self._bookkeep_fused(
+                    chunk_s[j],
+                    np.asarray(outs.pose[j]), float(outs.error[j]),
+                    acc[j], bool(outs.sub_applied[j]),
+                    float(outs.err_inc[j]), int(outs.iters[j]),
+                )
+                self.prev_points = chunk_s[j]
+                self.prev_rel_time = chunk_r[j]
+                self.stats.wall_bookkeep += time.perf_counter() - t_b
+                n_ok += bool(ok)
+                if not ok or j not in verdicts_by_j:
+                    continue
+                ni, cands, verds = verdicts_by_j[j]
+                t2 = time.perf_counter()
                 if self.verbose:
-                    mark = ("ok" if err_lc < cfg.lc_error_threshold
-                            else "x")
-                    print(f"    LC scan {ni}<->{ci}: "
-                          f"icp_err={err_lc:.6f}  {mark}")
-                if err_lc < cfg.lc_error_threshold:
-                    hit = (ci, cd, r_lc, t_lc, err_lc)
+                    print(f"  LC candidates for scan {ni}: "
+                          + ", ".join(f"#{ci}({cd:.1f}m)"
+                                      for ci, cd in cands))
+                for kk, (ci, cd) in enumerate(cands):
+                    r_lc, t_lc, err_lc, it_lc = verds[kk]
+                    self.stats.icp_iters += it_lc
+                    if self.verbose:
+                        mark = ("ok" if err_lc < cfg.lc_error_threshold
+                                else "x")
+                        print(f"    LC scan {ni}<->{ci}: "
+                              f"icp_err={err_lc:.6f}  {mark}")
+                    if err_lc < cfg.lc_error_threshold:
+                        hit = (ci, cd, r_lc, t_lc, err_lc)
+                        break
+                if hit is not None:
                     break
-            if hit is None:
                 self.stats.wall_loop_closure += time.perf_counter() - t2
-                continue
-            t_a = time.perf_counter()
+        if hit is None:
+            return n_ok, None
+        t_a = time.perf_counter()
+        with spans.span("engine.lc_apply"):
             self._lc_apply(ni, *hit)
             self._resync_state_after_lc(chunk_s[j])
-            self.stats.wall_lc_apply += time.perf_counter() - t_a
-            # IMU deltas of the re-queued scans chain off the accepted node
-            self._last_enq_rel = chunk_r[j]
-            self.stats.wall_loop_closure += time.perf_counter() - t2
-            return n_ok, j
-        return n_ok, None
+        self.stats.wall_lc_apply += time.perf_counter() - t_a
+        # IMU deltas of the re-queued scans chain off the accepted node
+        self._last_enq_rel = chunk_r[j]
+        self.stats.wall_loop_closure += time.perf_counter() - t2
+        return n_ok, j
+
+    @staticmethod
+    @spans.spanned("engine.fetch")
+    def _fetch(outs_dev):
+        """A step's or a batch's results read to the host, one copy a
+        field."""
+        spans.count("sync.engine.fetch", len(outs_dev))
+        return type(outs_dev)(*(f.cpu().numpy() for f in outs_dev))
 
     def _process_scans_lc(self, scans: list, rel_times: list) -> int:
         """Optimistic batching under loop closure (icp_tpu's pipeline).
@@ -1005,10 +1031,11 @@ class SlamEngine:
         no-ops, so the port runs the chunk as it is.)"""
         prev_rel = (self._last_enq_rel if self._last_enq_rel is not None
                     else self.prev_rel_time)
-        arrays, degenerate = self._pack_batch(scans, rel_times, prev_rel)
-        t0 = time.perf_counter()
-        self._state, outs = self._batch_fn(self._state,
-                                           *self._to_device(*arrays),
+        with spans.span("engine.pack"):
+            arrays, degenerate = self._pack_batch(scans, rel_times, prev_rel)
+            t0 = time.perf_counter()
+            arrays = self._to_device(*arrays)
+        self._state, outs = self._batch_fn(self._state, *arrays,
                                            degenerate=degenerate)
         self._last_enq_rel = rel_times[-1]
         self.stats.wall_registration += time.perf_counter() - t0
@@ -1094,46 +1121,50 @@ class SlamEngine:
         accepted = 0
         while self._pending:
             scans, rel_times, outs = self._pending.pop(0)
-            outs = type(outs)(*(f.cpu().numpy() for f in outs))
+            outs = self._fetch(outs)
             self._check_sub_saturation(outs.sub_n)
             self._check_sweep_drop(outs.sweep_drop)
-            for i in range(len(scans)):
-                ok = self._bookkeep_fused(
-                    scans[i],
-                    np.asarray(outs.pose[i]), float(outs.error[i]),
-                    bool(outs.accepted[i]), bool(outs.sub_applied[i]),
-                    float(outs.err_inc[i]), int(outs.iters[i]),
-                )
-                accepted += bool(ok)
-                self.prev_points = scans[i]
-                self.prev_rel_time = rel_times[i]
+            with spans.span("engine.bookkeep"):
+                for i in range(len(scans)):
+                    ok = self._bookkeep_fused(
+                        scans[i],
+                        np.asarray(outs.pose[i]), float(outs.error[i]),
+                        bool(outs.accepted[i]), bool(outs.sub_applied[i]),
+                        float(outs.err_inc[i]), int(outs.iters[i]),
+                    )
+                    accepted += bool(ok)
+                    self.prev_points = scans[i]
+                    self.prev_rel_time = rel_times[i]
         return accepted
 
     def _process_scan_fused(self, points_2d, rel_time_us, imu_yaw,
                             imu_delta) -> bool:
         self._drain_pending()
         t0 = time.perf_counter()
-        sp, sm = self._to_device(*_pad_fixed(points_2d, self._cap))
+        with spans.span("engine.pack"):
+            sp, sm = self._to_device(*_pad_fixed(points_2d, self._cap))
+            f32 = torch.float32
+            delta = self._upload_scalar(
+                imu_delta if imu_delta is not None else 0.0, f32)
+            yaw = self._upload_scalar(
+                imu_yaw if imu_yaw is not None else 0.0, f32)
         self._state, out = self._step_fn(
-            self._state, sp, sm,
-            torch.tensor(imu_delta if imu_delta is not None else 0.0,
-                         dtype=torch.float32, device=self.device),
-            torch.tensor(imu_yaw if imu_yaw is not None else 0.0,
-                         dtype=torch.float32, device=self.device),
+            self._state, sp, sm, delta, yaw,
             degenerate=min(points_2d.shape[0], self._cap) < 10,
         )
-        out = type(out)(*(f.cpu().numpy() for f in out))  # one read per scan
+        out = self._fetch(out)             # one read per scan
         self._check_sub_saturation(out.sub_n)
         self._check_sweep_drop(out.sweep_drop)
         self.stats.wall_registration += time.perf_counter() - t0
 
         self.prev_points = points_2d
         self.prev_rel_time = rel_time_us
-        ok = self._bookkeep_fused(
-            points_2d, np.asarray(out.pose), float(out.error),
-            bool(out.accepted), bool(out.sub_applied),
-            float(out.err_inc), int(out.iters),
-        )
+        with spans.span("engine.bookkeep"):
+            ok = self._bookkeep_fused(
+                points_2d, np.asarray(out.pose), float(out.error),
+                bool(out.accepted), bool(out.sub_applied),
+                float(out.err_inc), int(out.iters),
+            )
         if not ok:
             return False
 
@@ -1141,7 +1172,8 @@ class SlamEngine:
         if self.cfg.lc_enabled and cur_idx >= self.cfg.lc_min_interval:
             t2 = time.perf_counter()
             if self._try_loop_closure(points_2d, cur_idx):
-                self._resync_state_after_lc(points_2d)
+                with spans.span("engine.lc_apply"):
+                    self._resync_state_after_lc(points_2d)
             self.stats.wall_loop_closure += time.perf_counter() - t2
         return True
 

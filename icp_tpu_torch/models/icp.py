@@ -27,6 +27,7 @@ from icp_tpu_torch.ops.hopper.nn_kernel import nn_cuda
 from icp_tpu_torch.ops.nn import nn_query
 from icp_tpu_torch.ops.rigid import p2l_solve_2d, p2p_solve_2d, p2p_solve_3d
 from icp_tpu_torch.ops.voxel import voxel_downsample
+from icp_tpu_torch.utils import spans
 from icp_tpu_torch.utils.masking import masked_mean
 
 _F32_EPS = 1.1920929e-07
@@ -45,6 +46,7 @@ class ICPResult(NamedTuple):
     dropped: torch.Tensor | int = 0
 
 
+@spans.spanned("icp.core")
 def icp_core(
     source, src_mask, target, tgt_mask, R_init, t_init,
     *,
@@ -78,6 +80,7 @@ def icp_core(
 
     n_valid = src_mask.to(f32).sum()
     min_inliers = torch.clamp(torch.floor(n_valid / 10.0), min=3.0)
+    spans.count("sync.icp.consts", 3)       # the three host scalars below
     max_corr_sq = torch.tensor(max_corr_dist, dtype=f32, device=dev) ** 2
     err_thresh = torch.tensor(error_threshold, dtype=f32, device=dev)
     target_normals = (estimate_normals(target, tgt_mask, k=normal_k)
@@ -136,8 +139,15 @@ def icp_core(
             it = it + live.to(torch.int32)
             stop = stop | abort | converged
             done += 1
+        spans.count("sync.icp.stop")
         if bool(stop):          # one host sync per chunk
             break
+    if use_kernel and spans.live():
+        # the NN kernel's pairs: each launch's padded rows x targets, and
+        # the valid ones of the live iterations (summed when read)
+        spans.count("nn.pairs_computed",
+                    done * source.shape[0] * target.shape[0])
+        spans.count("nn.pairs_valid", (n_valid, tgt_mask.sum(), it))
     return ICPResult(r_total, t_total, error, it, n_in.to(torch.int32))
 
 
@@ -178,6 +188,7 @@ def _row_bound(occupied: int, qcells: int) -> int:
     return min(qcells, -(-want // 64) * 64)
 
 
+@spans.spanned("icp.large")
 def icp_large(
     source, src_mask, target, tgt_mask, R_init, t_init,
     *,
@@ -221,6 +232,9 @@ def icp_large(
     dev = source.device
     f32 = torch.float32
     use_p2l = method == "point_to_line"
+    spans.count("sync.icp.consts", sum(
+        x is not None and not isinstance(x, torch.Tensor)
+        for x in (max_corr_dist, error_threshold, cell_size)))
     max_corr = torch.as_tensor(max_corr_dist, dtype=f32, device=dev)
     cell = (1.5 * max_corr if cell_size is None
             else torch.as_tensor(cell_size, dtype=f32, device=dev))
@@ -310,6 +324,7 @@ def icp_large(
 
     cq, nq = rebin(R_init, t_init)
     occupied = cq.cell_mask.sum()
+    spans.count("sync.icp.rows")
     rows = _row_bound(int(occupied), qcells)
     zero = torch.zeros((), dtype=f32, device=dev)
     s = (torch.zeros((), dtype=torch.int32, device=dev), cq, nq, R_init,
@@ -321,12 +336,14 @@ def icp_large(
         out = s
         for _ in range(k):
             out = step(out, rows)
+        spans.count("sync.icp.stop")
         stop, need = torch.stack([out[6].to(torch.int64), out[9]]).tolist()
         if need > rows:         # a re-bin outgrew the bound: redo on all rows
             rows = qcells
             out = s
             for _ in range(k):
                 out = step(out, rows)
+            spans.count("sync.icp.stop")
             stop = bool(out[6])
         s = out
         done += k

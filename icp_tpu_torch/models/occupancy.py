@@ -10,11 +10,20 @@ import numpy as np
 import torch
 
 from icp_tpu_torch.ops.raytrace import raytrace_update
+from icp_tpu_torch.utils import spans
+
+
+def _uploads(*arrays) -> int:
+    """Host arrays among ``arrays`` (None aside): each is one copy to the
+    device, a sync on a card."""
+    return sum(a is not None and not isinstance(a, torch.Tensor)
+               for a in arrays)
 
 
 def world_to_cells(xy, min_x, min_y, resolution):
     """World coordinates (..., 2) -> integer grid cells (..., 2) as (ix, iy),
     computed in f32 as icp_tpu computes them."""
+    spans.count("sync.map.grid_min")
     grid_min = torch.tensor([min_x, min_y], dtype=torch.float32,
                             device=xy.device)
     return torch.floor((xy - grid_min) * np.float32(1.0 / resolution)
@@ -71,6 +80,7 @@ class OccupancyGrid2D:
         origin_xy (2,) world coords; hit_points (N, 2) world coords (array or
         tensor); mask (N,) bool (None = all valid).
         """
+        spans.count("sync.map.upload", _uploads(hit_points, origin_xy, mask))
         hits = torch.as_tensor(hit_points, dtype=torch.float32,
                                device=self.device)
         origin = torch.as_tensor(origin_xy, dtype=torch.float32,
@@ -99,6 +109,7 @@ class OccupancyGrid2D:
         ``log_odds``: a tensor that aliased the old grid (the fused state's)
         keeps the old values, as icp_tpu's replay leaves its state's grid.
         """
+        spans.count("sync.map.upload", _uploads(masks, origins, hits))
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
         origins = torch.as_tensor(origins, dtype=torch.float32,
                                   device=self.device)
@@ -106,6 +117,7 @@ class OccupancyGrid2D:
         grid = (self.min_x, self.min_y, self.resolution)
         lo = torch.zeros((self.ny, self.nx), dtype=torch.float32,
                          device=self.device)
+        spans.count("sync.map.replay_rows", 2)     # nonzero, then the list
         for k in torch.nonzero(masks.any(dim=1)).flatten().tolist():
             raytrace_update(
                 lo, world_to_cells(origins[k], *grid),

@@ -19,8 +19,10 @@ it into power-of-two capacity buckets and solves on ``device``:
   ``node_threshold`` nodes up solve by the distributed Schur-complement GN,
   or by the distributed PCG past the Schur limits.
 
-The PCG route's parts are spans (``utils.spans``): ``coarse_correct``,
-``pack``, ``pcg``, ``store`` and ``total_error``.
+Each ``optimize`` is the span ``pose_graph.solve`` (``utils.spans``), and
+its parts are spans under it: ``pose_graph.pack``, ``dense_build`` and
+``dense_solve`` on the dense route, ``coarse_correct`` and ``pcg`` on the
+PCG route, ``store`` and ``total_error``.
 
 Anchor semantics are icp_tpu's and the reference's (pose_graph.py:109-114):
 the fixed node's rows and columns are zeroed and its diagonal block set to
@@ -148,37 +150,40 @@ def optimize_dense(nodes, node_mask, ei, ej, z, omega, edge_mask,
     dev = nodes.device
     if robust_mask is None:
         robust_mask = torch.zeros(ei.shape[0], dtype=torch.bool, device=dev)
-    idx3 = torch.arange(3 * n, device=dev)
-    anchor_rows = (idx3 // 3) == int(fix_node)
-    diag_add = (torch.where(anchor_rows, ANCHOR_WEIGHT, 0.0)
-                + torch.where(torch.repeat_interleave(~node_mask, 3), 1.0, 0.0)
-                ).to(nodes.dtype)
-    cross = anchor_rows[:, None] | anchor_rows[None, :]
-    plans = _dense_plans(n, ei, ej, edge_mask)
-
-    cur = nodes
-    it = 0
-    while it < n_iterations:
-        e, A, B = edge_terms(cur, ei, ej, z, omega, edge_mask)
-        om_eff = robust_omega(e, omega, robust_mask, robust_phi)
-        H, b = _scatter_dense(n, plans,
-                              *_block_products(e, A, B, om_eff, edge_mask))
-        # anchor: zero row/col, big diagonal (pose_graph.py:109-114)
-        H = torch.where(cross, 0.0, H) + torch.diag(diag_add)
-        b = torch.where(anchor_rows, 0.0, b)
-        # Levenberg-Marquardt diagonal scaling (adds exactly 0 at damping 0)
-        H = H + torch.diag(damping * torch.diagonal(H))
-        dx, info = torch.linalg.solve_ex(H, -b)
-        # a singular H (info > 0) is the non-finite step of an LU solve
-        bad = (info != 0) | ~torch.isfinite(dx).all()
-        dx = torch.where(bad, 0.0, dx)
-        dxr = dx.reshape(n, 3)
-        new = torch.stack([cur[:, 0] + dxr[:, 0], cur[:, 1] + dxr[:, 1],
-                           wrap_angle(cur[:, 2] + dxr[:, 2])], dim=-1)
-        cur = torch.where(node_mask[:, None], new, cur)
-        it += 1
-        if bool(bad | (torch.linalg.norm(dx) < convergence_eps)):
-            break
+    with spans.span("pose_graph.dense_build"):
+        idx3 = torch.arange(3 * n, device=dev)
+        anchor_rows = (idx3 // 3) == int(fix_node)
+        diag_add = (torch.where(anchor_rows, ANCHOR_WEIGHT, 0.0)
+                    + torch.where(torch.repeat_interleave(~node_mask, 3),
+                                  1.0, 0.0)).to(nodes.dtype)
+        cross = anchor_rows[:, None] | anchor_rows[None, :]
+        plans = _dense_plans(n, ei, ej, edge_mask)
+    with spans.span("pose_graph.dense_solve"):
+        cur = nodes
+        it = 0
+        while it < n_iterations:
+            e, A, B = edge_terms(cur, ei, ej, z, omega, edge_mask)
+            om_eff = robust_omega(e, omega, robust_mask, robust_phi)
+            H, b = _scatter_dense(n, plans,
+                                  *_block_products(e, A, B, om_eff, edge_mask))
+            # anchor: zero row/col, big diagonal (pose_graph.py:109-114)
+            H = torch.where(cross, 0.0, H) + torch.diag(diag_add)
+            b = torch.where(anchor_rows, 0.0, b)
+            # Levenberg-Marquardt diagonal scaling (adds exactly 0 at
+            # damping 0)
+            H = H + torch.diag(damping * torch.diagonal(H))
+            dx, info = torch.linalg.solve_ex(H, -b)
+            # a singular H (info > 0) is the non-finite step of an LU solve
+            bad = (info != 0) | ~torch.isfinite(dx).all()
+            dx = torch.where(bad, 0.0, dx)
+            dxr = dx.reshape(n, 3)
+            new = torch.stack([cur[:, 0] + dxr[:, 0], cur[:, 1] + dxr[:, 1],
+                               wrap_angle(cur[:, 2] + dxr[:, 2])], dim=-1)
+            cur = torch.where(node_mask[:, None], new, cur)
+            it += 1
+            spans.count("sync.pose_graph.stop")
+            if bool(bad | (torch.linalg.norm(dx) < convergence_eps)):
+                break
     return cur, it
 
 
@@ -308,18 +313,21 @@ class PoseGraph2D:
     def _packed_device(self):
         """``_packed()`` as tensors on the graph's device (int64 indices)."""
         nodes, nm, ei, ej, z, om, em, rb = self._packed()
+        spans.count("sync.pose_graph.upload", 8)
         t = lambda a, dt=None: torch.as_tensor(a, dtype=dt,  # noqa: E731
                                                device=self.device)
         return (t(nodes), t(nm), t(ei, torch.int64), t(ej, torch.int64),
                 t(z), t(om), t(em), t(rb))
 
     def _store(self, out: torch.Tensor):
-        with spans.span("store"):
+        with spans.span("pose_graph.store"):
+            spans.count("sync.pose_graph.store")
             out = out.cpu().numpy()
             for k in range(self.n_nodes):
                 self._nodes[k] = out[k]
 
     # ── optimisation ─────────────────────────────────────────────────────
+    @spans.spanned("pose_graph.solve")
     def optimize(self, n_iterations=20, fix_node=0, convergence_eps=1e-6):
         """Gauss-Newton with a divergence guard and a damped (LM) retry.
 
@@ -381,7 +389,8 @@ class PoseGraph2D:
             return self._optimize_cg(n_iterations, fix_node,
                                      convergence_eps, damping=damping)
         self.last_strategy = "dense"
-        nodes, nm, ei, ej, z, om, em, rb = self._packed_device()
+        with spans.span("pose_graph.pack"):
+            nodes, nm, ei, ej, z, om, em, rb = self._packed_device()
         out, it = optimize_dense(
             nodes, nm, ei, ej, z, om, em, int(fix_node), rb,
             float(self.robust_phi), float(damping),
@@ -502,13 +511,13 @@ class PoseGraph2D:
         if mesh is None:
             mesh = Mesh((self.device,))
         if self.n_nodes >= self._coarse_threshold and damping == 0.0:
-            with spans.span("coarse_correct"):
+            with spans.span("pose_graph.coarse_correct"):
                 self._coarse_correct(int(fix_node),
                                      max(2, self.n_nodes // 1000))
         self.last_strategy = "cg" if mesh.size == 1 else "dist_cg"
-        with spans.span("pack"):
+        with spans.span("pose_graph.pack"):
             nodes, nm, ei, ej, z, om, em, rb = self._packed_device()
-        with spans.span("pcg"):
+        with spans.span("pose_graph.pcg"):
             out, it = optimize_cg(
                 mesh, nodes, nm, ei, ej, z, om, em, int(fix_node),
                 n_iterations=int(n_iterations),
@@ -555,6 +564,7 @@ class PoseGraph2D:
     def total_error(self) -> float:
         if self.n_edges == 0:
             return 0.0
-        with spans.span("total_error"):
+        with spans.span("pose_graph.total_error"):
             nodes, _, ei, ej, z, om, em, _ = self._packed_device()
+            spans.count("sync.pose_graph.chi2")
             return float(total_error(nodes, ei, ej, z, om, em))

@@ -14,6 +14,7 @@ import torch
 from icp_tpu_torch.ops.nn import nn_query
 from icp_tpu_torch.ops.sweep import sweep_scores
 from icp_tpu_torch.ops.voxel import voxel_downsample
+from icp_tpu_torch.utils import spans
 from icp_tpu_torch.utils.masking import BIG, masked_centroid, masked_mean, take
 from icp_tpu_torch.utils.se2 import rotmat
 
@@ -26,6 +27,7 @@ def _fine_count(step_coarse_deg: float, step_fine_deg: float) -> int:
 
 
 def _f32(x, device):
+    spans.count("sync.prealign.const")
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 

@@ -44,7 +44,7 @@ from icp_tpu_torch.models.occupancy import world_to_cells
 from icp_tpu_torch.models.prealign import rotation_search, submap_rotation_search
 from icp_tpu_torch.ops.raytrace import raytrace_update, raytrace_update_batched
 from icp_tpu_torch.ops.voxel import voxel_downsample, voxel_downsample_fixed
-from icp_tpu_torch.utils import se2
+from icp_tpu_torch.utils import se2, spans
 
 
 class SlamState(NamedTuple):
@@ -103,6 +103,7 @@ def init_state(first_scan, first_mask, log_odds, ring_k: int, seed: int = 0,
     ring_pts[0] = first_scan          # slot 0 <- first scan (identity pose)
     ring_mask[0] = first_mask
     feat, feat_valid = blank_feat_state(cap, feat_shapes, dev)
+    spans.count("sync.slam_step.upload")         # ring_idx, from the host
     return SlamState(
         prev_pts=first_scan,
         prev_mask=first_mask,
@@ -229,6 +230,11 @@ def make_slam_step(
     def to_cells(xy):
         return world_to_cells(xy, grid_min_x, grid_min_y, grid_resolution)
 
+    prealign_span = spans.span("engine.prealign")
+    submap_span = spans.span("engine.submap")
+    paint_span = spans.span("map.paint")
+
+    @spans.spanned("engine.step")
     def step(state: SlamState, cur_pts, cur_mask, imu_delta, imu_yaw,
              paint_map: bool = True, degenerate: bool | None = None):
         dev = cur_pts.device
@@ -236,40 +242,42 @@ def make_slam_step(
         zero2 = torch.zeros(2, dtype=torch.float32, device=dev)
         feat_cur = None
         # ── scan-to-scan odometry (slam.py:465-483) ─────────────────────
-        if use_imu:
-            R0, t0 = se2.rotmat(imu_delta), zero2
-        elif prealign == "none":
-            R0, t0 = eye2, zero2
-        elif cache_feats:
-            # the current scan's features are extracted once, here, and
-            # carried as the next step's source (the reference extracts
-            # both clouds per pair, features.py:283-295: same output)
-            feat_cur = extract_features(cur_pts, cur_mask, **feat_kw)
-            feat_prev = (state.feat if state.feat_valid else
-                         extract_features(state.prev_pts, state.prev_mask,
-                                          **feat_kw))
-            R_f, t_f, n_in = match_and_align(feat_prev, feat_cur, state.gen,
-                                             **ransac_kw)
-            ok = n_in >= min_inliers
-            R0, t0 = torch.where(ok, R_f, eye2), torch.where(ok, t_f, zero2)
-        else:
-            R0, t0 = eye2, zero2
-            if prealign in ("rotation_search", "both"):
-                R0, t0, _ = rotation_search(
-                    state.prev_pts, state.prev_mask, cur_pts, cur_mask,
-                    voxel_size=rotation_voxel_size,
-                    angle_step_coarse=angle_step_coarse,
-                    angle_step_fine=angle_step_fine,
-                )
-            if prealign == "both":
-                # feature alignment on the pre-rotated source, composed as
-                # the reference composes it (slam.py:68-88)
-                R_f, t_f, n_in = feature_based_alignment(
-                    state.prev_pts @ R0.T + t0, state.prev_mask, cur_pts,
-                    cur_mask, state.gen, **feat_kw, **ransac_kw)
+        with prealign_span:
+            if use_imu:
+                R0, t0 = se2.rotmat(imu_delta), zero2
+            elif prealign == "none":
+                R0, t0 = eye2, zero2
+            elif cache_feats:
+                # the current scan's features are extracted once, here, and
+                # carried as the next step's source (the reference extracts
+                # both clouds per pair, features.py:283-295: same output)
+                feat_cur = extract_features(cur_pts, cur_mask, **feat_kw)
+                feat_prev = (state.feat if state.feat_valid else
+                             extract_features(state.prev_pts, state.prev_mask,
+                                              **feat_kw))
+                R_f, t_f, n_in = match_and_align(feat_prev, feat_cur,
+                                                 state.gen, **ransac_kw)
                 ok = n_in >= min_inliers
-                R0, t0 = (torch.where(ok, R_f @ R0, R0),
-                          torch.where(ok, t0 @ R_f.T + t_f, t0))
+                R0 = torch.where(ok, R_f, eye2)
+                t0 = torch.where(ok, t_f, zero2)
+            else:
+                R0, t0 = eye2, zero2
+                if prealign in ("rotation_search", "both"):
+                    R0, t0, _ = rotation_search(
+                        state.prev_pts, state.prev_mask, cur_pts, cur_mask,
+                        voxel_size=rotation_voxel_size,
+                        angle_step_coarse=angle_step_coarse,
+                        angle_step_fine=angle_step_fine,
+                    )
+                if prealign == "both":
+                    # feature alignment on the pre-rotated source, composed as
+                    # the reference composes it (slam.py:68-88)
+                    R_f, t_f, n_in = feature_based_alignment(
+                        state.prev_pts @ R0.T + t0, state.prev_mask, cur_pts,
+                        cur_mask, state.gen, **feat_kw, **ransac_kw)
+                    ok = n_in >= min_inliers
+                    R0, t0 = (torch.where(ok, R_f @ R0, R0),
+                              torch.where(ok, t0 @ R_f.T + t_f, t0))
         src_d, src_dm = voxel_downsample(state.prev_pts, state.prev_mask,
                                          icp_voxel)
         tgt_d, tgt_dm = voxel_downsample(cur_pts, cur_mask, icp_voxel)
@@ -296,54 +304,57 @@ def make_slam_step(
         sub_n = torch.zeros((), dtype=torch.int32, device=dev)
         sweep_drop = torch.zeros((), dtype=torch.int32, device=dev)
         if submap_enabled:
-            sub_pts, sub_mask = voxel_downsample_fixed(
-                state.ring_pts.reshape(-1, 2), state.ring_mask.reshape(-1),
-                submap_voxel, submap_capacity)
-            sub_n = sub_mask.sum().to(torch.int32)
-            if use_imu:
-                pred = se2.make_pose(se2.rotmat(imu_yaw), new_pose[:2, 2])
-                a_range, a_step = imu_narrow, 0.5
-            else:
-                pred = new_pose
-                a_range, a_step = sub_rot_range, sub_rot_step
-            R_s, t_s, s_drop, t_drop = submap_rotation_search(
-                cur_pts, cur_mask, sub_pts, sub_mask, pred,
-                angle_range=a_range, angle_step=a_step,
-                fine_step=sub_rot_fine, voxel_size=sub_rot_voxel,
-                src_cap=sweep_src_cap, tgt_cap=sweep_tgt_cap,
-                with_overflow=True,
-            )
-            sweep_drop = s_drop + t_drop
-            cur_d, cur_dm = voxel_downsample(cur_pts, cur_mask, icp_voxel)
-            # the reference's ICP re-voxelises the (submap-voxel) submap at
-            # the ICP voxel (icp.py:150-151 on top of slam.py:103-108)
-            sub_d, sub_dm = voxel_downsample(sub_pts, sub_mask, icp_voxel)
-            res_sub = icp_core(
-                cur_d, cur_dm, sub_d, sub_dm, R_s, t_s,
-                method="point_to_point", max_iterations=icp_max_iterations,
-                error_threshold=icp_error_threshold,
-                max_corr_dist=sub_corr_dist, use_gate=True, nn_impl=nn_impl,
-            )
-            pos_diff = torch.linalg.norm(res_sub.t - new_pose[:2, 2])
-            sub_yaw = torch.atan2(res_sub.R[1, 0], res_sub.R[0, 0])
-            inc_yaw = se2.yaw_of_pose(new_pose)
-            yaw_diff = torch.abs(se2.wrap_angle(sub_yaw - inc_yaw))
-            sub_ok = (accepted
-                      & (res_sub.error <= error_reject_threshold)
-                      & (pos_diff < sub_corr_dist)
-                      & (yaw_diff < np.float32(math.radians(15.0))))
-            new_pose = torch.where(sub_ok, se2.make_pose(res_sub.R, res_sub.t),
-                                   new_pose)
-            error = torch.where(sub_ok, res_sub.error, error)
-            sub_applied = sub_ok
+            with submap_span:
+                sub_pts, sub_mask = voxel_downsample_fixed(
+                    state.ring_pts.reshape(-1, 2), state.ring_mask.reshape(-1),
+                    submap_voxel, submap_capacity)
+                sub_n = sub_mask.sum().to(torch.int32)
+                if use_imu:
+                    pred = se2.make_pose(se2.rotmat(imu_yaw), new_pose[:2, 2])
+                    a_range, a_step = imu_narrow, 0.5
+                else:
+                    pred = new_pose
+                    a_range, a_step = sub_rot_range, sub_rot_step
+                R_s, t_s, s_drop, t_drop = submap_rotation_search(
+                    cur_pts, cur_mask, sub_pts, sub_mask, pred,
+                    angle_range=a_range, angle_step=a_step,
+                    fine_step=sub_rot_fine, voxel_size=sub_rot_voxel,
+                    src_cap=sweep_src_cap, tgt_cap=sweep_tgt_cap,
+                    with_overflow=True,
+                )
+                sweep_drop = s_drop + t_drop
+                cur_d, cur_dm = voxel_downsample(cur_pts, cur_mask, icp_voxel)
+                # the reference's ICP re-voxelises the (submap-voxel) submap at
+                # the ICP voxel (icp.py:150-151 on top of slam.py:103-108)
+                sub_d, sub_dm = voxel_downsample(sub_pts, sub_mask, icp_voxel)
+                res_sub = icp_core(
+                    cur_d, cur_dm, sub_d, sub_dm, R_s, t_s,
+                    method="point_to_point", max_iterations=icp_max_iterations,
+                    error_threshold=icp_error_threshold,
+                    max_corr_dist=sub_corr_dist, use_gate=True,
+                    nn_impl=nn_impl,
+                )
+                pos_diff = torch.linalg.norm(res_sub.t - new_pose[:2, 2])
+                sub_yaw = torch.atan2(res_sub.R[1, 0], res_sub.R[0, 0])
+                inc_yaw = se2.yaw_of_pose(new_pose)
+                yaw_diff = torch.abs(se2.wrap_angle(sub_yaw - inc_yaw))
+                sub_ok = (accepted
+                          & (res_sub.error <= error_reject_threshold)
+                          & (pos_diff < sub_corr_dist)
+                          & (yaw_diff < np.float32(math.radians(15.0))))
+                new_pose = torch.where(
+                    sub_ok, se2.make_pose(res_sub.R, res_sub.t), new_pose)
+                error = torch.where(sub_ok, res_sub.error, error)
+                sub_applied = sub_ok
 
         # ── map update (slam.py:551-557) ────────────────────────────────
         gp = se2.transform_points(cur_pts, new_pose)
         if paint_map:
-            raytrace_update(
-                state.log_odds, to_cells(new_pose[:2, 2]), to_cells(gp),
-                cur_mask & accepted, l_hit, l_miss, log_odds_min,
-                log_odds_max, max_steps=max_ray_cells)
+            with paint_span:
+                raytrace_update(
+                    state.log_odds, to_cells(new_pose[:2, 2]), to_cells(gp),
+                    cur_mask & accepted, l_hit, l_miss, log_odds_min,
+                    log_odds_max, max_steps=max_ray_cells)
 
         # ── submap ring push (slam.py:559-562), in place ────────────────
         K = state.ring_pts.shape[0]
@@ -359,6 +370,7 @@ def make_slam_step(
         feat, feat_valid = state.feat, state.feat_valid
         if cache_feats:
             if degenerate_host is None:
+                spans.count("sync.slam_step.degenerate")
                 degenerate_host = bool(degenerate)      # one host read
             # a degenerate scan is skipped wholesale (prev unchanged), so
             # the cache keeps describing the old prev
@@ -395,13 +407,14 @@ def make_slam_step(
             outs.append(out)
         outs = StepOut(*(torch.stack(f) for f in zip(*outs)))
         if batched_map:
-            R = outs.pose[:, :2, :2]
-            t = outs.pose[:, :2, 2]
-            gp = scans @ R.transpose(-1, -2) + t[:, None, :]
-            raytrace_update_batched(
-                state.log_odds, to_cells(t), to_cells(gp),
-                masks & outs.accepted[:, None], l_hit, l_miss,
-                log_odds_min, log_odds_max, max_steps=max_ray_cells)
+            with paint_span:
+                R = outs.pose[:, :2, :2]
+                t = outs.pose[:, :2, 2]
+                gp = scans @ R.transpose(-1, -2) + t[:, None, :]
+                raytrace_update_batched(
+                    state.log_odds, to_cells(t), to_cells(gp),
+                    masks & outs.accepted[:, None], l_hit, l_miss,
+                    log_odds_min, log_odds_max, max_steps=max_ray_cells)
         return state, outs
 
     return step, batch

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from icp_tpu_torch.ops.eig2 import eigh2x2
+from icp_tpu_torch.utils import spans
 from icp_tpu_torch.utils.masking import BIG
 
 
@@ -66,6 +67,8 @@ class DenseNNResult(NamedTuple):
 
 
 def _f32(x, device):
+    if not isinstance(x, torch.Tensor):
+        spans.count("sync.densegrid.const")
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
@@ -168,6 +171,8 @@ def bin_queries(query, query_mask, origin, cell_size, *,
     cell_yx = torch.zeros((qcells + 1, 2), dtype=torch.int32, device=dev)
     cell_yx[hrow] = torch.stack([cs // Cx, cs % Cx], dim=1).to(torch.int32)
     cell_mask = torch.zeros(qcells + 1, dtype=torch.bool, device=dev)
+    # a host scalar put at tensor indices is copied to the device first
+    spans.count("sync.densegrid.mask_fill")
     cell_mask[hrow] = True
     overflow = (query_mask.sum() - ok.sum()).to(torch.int32)
     return CompactQueries(qx, qy, qidx, qm, cell_yx[:qcells],
@@ -247,6 +252,7 @@ def compact_nn(cq: CompactQueries, grid: DenseGrid, rows: int | None = None):
     R = qcells if rows is None else max(0, min(int(rows), qcells))
     dev = cq.x.device
     # padded-plane flat rows of the nine neighbour cells, in (dy, dx) order
+    spans.count("sync.densegrid.offsets")
     offs = torch.tensor([dy * Cxp + dx for dy in range(3) for dx in range(3)],
                         device=dev)
     base = cq.cell_yx[:R, 0].to(torch.int64) * Cxp + cq.cell_yx[:R, 1]

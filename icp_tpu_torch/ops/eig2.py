@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from icp_tpu_torch.ops.nn import pairwise_sqdist
+from icp_tpu_torch.utils import spans
 from icp_tpu_torch.utils.masking import masked_centroid
 
 
@@ -32,6 +33,7 @@ def eigh2x2(a, b, c):
     v = torch.where((n1 >= n2)[..., None], v1, v2)
     norm = torch.sqrt(torch.clamp((v * v).sum(-1, keepdim=True), min=0.0))
     # isotropic neighbourhood (rad ~ 0): any direction is an eigenvector
+    spans.count("sync.eig2.fallback")
     fallback = torch.tensor([1.0, 0.0], dtype=v.dtype, device=v.device).expand(v.shape)
     v = torch.where(norm > 1e-20, v / torch.clamp(norm, min=1e-20), fallback)
     return lmin, lmax, v

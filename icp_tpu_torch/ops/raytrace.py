@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from icp_tpu_torch.utils import spans
+
 
 def bresenham_cells_xy(origin_cell, end_cells, valid, *, max_steps: int):
     """Free-space cells of rays origin -> each endpoint, as separate planes.
@@ -76,6 +78,7 @@ def _paint(log_odds, hx, hy, hit_valid, fx, fy, free_active,
     flat = log_odds.view(-1)
     hx, hy, hit_valid = hx.reshape(-1), hy.reshape(-1), hit_valid.reshape(-1)
     hit_in = hit_valid & (hx >= 0) & (hx < nx) & (hy >= 0) & (hy < ny)
+    spans.count("sync.map.paint_mask", 2)      # the two masked indexings
     hkey = (hy * nx + hx)[hit_in]
     # each call adds one constant to every cell it touches (l_hit here,
     # l_miss below), so the sums do not depend on the atomics' order

@@ -11,7 +11,7 @@ tensors it launches ``icp_segment_add`` (``csrc/segment_add.cu``, built by
 ``ops/hopper/build.py`` at first use) on a segment plan, or raises; it
 never falls back to ``index_add_``. ``segment_add_launches`` counts kernel
 launches, ``segment_plan_builds`` the plans built (span
-``segment_plan``, see ``utils.spans``).
+``scatter.segment_plan``, see ``utils.spans``).
 
 A segment plan (``segment_plan``) is the index in the kernel's order: a
 stable sort on 32-bit keys and its permutation, built on the device with
@@ -72,10 +72,12 @@ def segment_plan(index, n_slots: int, keep=None) -> SegmentPlan:
                              or keep.dtype != torch.bool):
         raise ValueError(f"keep must be (N,) bool like the index, got "
                          f"{tuple(keep.shape)} {keep.dtype}")
+    if isinstance(n_slots, torch.Tensor):
+        spans.count("sync.scatter.n_slots")
     n_slots = int(n_slots)
     if index.device.type == "cpu":
         return SegmentPlan(index, keep, n_slots, None, None)
-    with spans.span("segment_plan"):
+    with spans.span("scatter.segment_plan"):
         return SegmentPlan(index, keep, n_slots,
                            *_plan_order(index, n_slots, keep))
 

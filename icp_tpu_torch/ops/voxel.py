@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from icp_tpu_torch.ops.scatter import ordered_index_add_
+from icp_tpu_torch.utils import spans
 
 _INT_SENTINEL = 2**30          # per-plane sentinel: sorts after real coords
 _KEY_SHIFT = 2**31             # c1 < 2**31, so c0 * 2**31 + c1 is lexicographic
@@ -47,6 +48,8 @@ def _sorted_runs(points, mask, voxel_size):
     if d not in (2, 3):
         raise ValueError(f"voxel_downsample takes (N, 2) or (N, 3) points, "
                          f"got {tuple(points.shape)}")
+    if not isinstance(voxel_size, torch.Tensor):
+        spans.count("sync.voxel.size")
     v = torch.as_tensor(voxel_size, dtype=points.dtype, device=points.device)
     # f32 reciprocal, as icp_tpu computes it on a traced f32 voxel size
     inv = 1.0 / v

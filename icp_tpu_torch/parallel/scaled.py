@@ -54,6 +54,7 @@ from icp_tpu_torch.ops.voxel import voxel_downsample_fixed
 from icp_tpu_torch.parallel.mesh import Mesh
 from icp_tpu_torch.parallel.sharded_grid import (
     raytrace_replay_block_sharded, raytrace_update_block_sharded)
+from icp_tpu_torch.utils import spans
 from icp_tpu_torch.utils.masking import pad_points
 
 
@@ -127,6 +128,8 @@ class ScaledPipeline:
     ``kf_points`` and ``stats``. All capacities are static. ``mesh`` is a
     ``parallel.mesh.Mesh`` of any size, or a device for a one-shard mesh
     on it (default cuda; raises without a card)."""
+
+    _keyframe_span = spans.span("scaled.keyframe")
 
     def __init__(self, mesh="cuda", *,
                  scan_capacity: int = 131072,
@@ -300,10 +303,13 @@ class ScaledPipeline:
     def _sync_devices(self):
         for d in dict.fromkeys(self.mesh.devices):
             if d.type == "cuda":
+                spans.count("sync.scaled.sync_devices")
                 torch.cuda.synchronize(d)
 
     # ── helpers ──────────────────────────────────────────────────────────
     def _t(self, a, dtype=None):
+        if not isinstance(a, torch.Tensor):
+            spans.count("sync.scaled.upload")
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def _set_dev_carry(self, T, inc):
@@ -316,6 +322,7 @@ class ScaledPipeline:
         """Compact voxelized keyframe cloud (host array)."""
         d, dm = voxel_downsample_fixed(pts_pad, mask, self.kf_voxel,
                                        self.kf_cap)
+        spans.count("sync.scaled.kf_read", 2)
         return d.cpu().numpy()[dm.cpu().numpy()]
 
     @property
@@ -375,11 +382,13 @@ class ScaledPipeline:
 
     def _cells(self, world):
         """World points (..., 2) -> integer map cells (..., 2)."""
+        spans.count("sync.scaled.cells")
         return torch.floor(
             (world - torch.tensor([self.min_x, self.min_y],
                                   dtype=torch.float32, device=self.device))
             * (1.0 / self.resolution)).to(torch.int64)
 
+    @spans.spanned("map.paint")
     def _paint(self, pts, mask, R, t):
         """Paint one voxelized keyframe at pose (R, t) into the blocks, in
         place: hits from every point, free space along every
@@ -445,15 +454,17 @@ class ScaledPipeline:
               & (d_pos <= self.gate_dist) & (d_yaw <= self.gate_yaw))
         Rn = _snap(torch.where(ok, res.R, Rp))
         tn = torch.where(ok, res.t, tp)
-        kf_p, kf_m = voxel_downsample_fixed(sp, sm, self.kf_voxel,
-                                            self.kf_cap)
+        with self._keyframe_span:
+            kf_p, kf_m = voxel_downsample_fixed(sp, sm, self.kf_voxel,
+                                                self.kf_cap)
         out = self.mesh.broadcast(
             (Rn, tn, res.error, res.iters, ok, res.dropped, kf_p, kf_m))
         Rn, tn, kf_p, kf_m = out[0], out[1], out[6], out[7]
         self._dev_iR = _snap(pR.T @ Rn)             # relative increment
         self._dev_it = pR.T @ (tn - pt)
         self._dev_pR, self._dev_pt = Rn, tn
-        self._ring_push(kf_p, kf_m, Rn, tn, slot)
+        with self._keyframe_span:
+            self._ring_push(kf_p, kf_m, Rn, tn, slot)
         return tuple(out)
 
     # ── per-scan step ────────────────────────────────────────────────────
@@ -462,8 +473,9 @@ class ScaledPipeline:
         loop-closure check -> online BA. ``points`` is (n, 2) sensor frame.
         In submap mode the outputs are bookkept at the drain; call
         finish() (or optimize()) after the last scan."""
-        sp, sm = pad_points(points[:self.cap], self.cap)
-        sp, sm = self._t(sp), self._t(sm)
+        with spans.span("scaled.pack"):
+            sp, sm = pad_points(points[:self.cap], self.cap)
+            sp, sm = self._t(sp), self._t(sm)
         if self._register:
             return self._step_fused(sp, sm)
         return self._step_legacy(sp, sm)
@@ -473,15 +485,17 @@ class ScaledPipeline:
         t0 = time.perf_counter()
         if idx == 0:
             # first scan: seed the ring at the identity pose
-            kf_p, kf_m = voxel_downsample_fixed(sp, sm, self.kf_voxel,
-                                                self.kf_cap)
-            self._ring_pts[0] = kf_p
-            self._ring_mask[0] = kf_m
+            with self._keyframe_span:
+                kf_p, kf_m = voxel_downsample_fixed(sp, sm, self.kf_voxel,
+                                                    self.kf_cap)
+                self._ring_pts[0] = kf_p
+                self._ring_mask[0] = kf_m
             out = (self._dev_pR, self._dev_pt, self._t(0.0, torch.float32),
                    self._t(0, torch.int32), self._t(True),
                    self._t(0, torch.int32), kf_p, kf_m)
         else:
-            out = self._fused_reg(sp, sm, idx % self.submap_kf)
+            with spans.span("scaled.register"):
+                out = self._fused_reg(sp, sm, idx % self.submap_kf)
         # paint the voxelized keyframe: the cloud sync_map can un-paint
         self._paint(out[6], out[7], out[0], out[1])
         self._pending.append(_to_host(out))
@@ -510,13 +524,22 @@ class ScaledPipeline:
                 self._run_ba(self.ba_iters)
                 self.stats.wall_ba += time.perf_counter() - t1
 
+    @spans.spanned("scaled.drain")
     def _drain(self):
         """Bookkeep in-flight step outputs (host mirror of poses,
         keyframes, graph nodes/edges, stats)."""
         t0 = time.perf_counter()
         if self._pending_event is not None:
-            self._pending_event.synchronize()
+            with spans.span("scaled.drain_wait"):
+                spans.count("sync.scaled.drain_wait")
+                self._pending_event.synchronize()
             self._pending_event = None
+        self._bookkeep_pending()
+        self._maybe_gc_freeze()
+        self.stats.wall_registration += time.perf_counter() - t0
+
+    @spans.spanned("scaled.bookkeep")
+    def _bookkeep_pending(self):
         for out in self._pending:
             Rn, tn, err, iters, ok, dropped, kf_p, kf_m = (
                 x.numpy() for x in out)
@@ -545,8 +568,6 @@ class ScaledPipeline:
             self._add_node_edge(err if idx > 0 else 1.0)
             self.stats.scans += 1
         self._pending.clear()
-        self._maybe_gc_freeze()
-        self.stats.wall_registration += time.perf_counter() - t0
 
     def finish(self):
         """Drain in-flight results; call after the last step() before
@@ -560,6 +581,7 @@ class ScaledPipeline:
         self.trajectory.append(self.global_pose.copy())
         kf_p, kf_m = voxel_downsample_fixed(sp, sm, self.kf_voxel,
                                             self.kf_cap)
+        spans.count("sync.scaled.kf_read", 2)
         self.kf_points.append(kf_p.cpu().numpy()[kf_m.cpu().numpy()])
         self._append_kf_pos(self.global_pose[:2, 2])
         cur_idx = self._add_node_edge(err)
@@ -585,6 +607,7 @@ class ScaledPipeline:
                         self._t(inc_init[:2, 2]), **self._icp_kw)
         R, t, err, iters, dropped = self.mesh.broadcast(
             (res.R, res.t, res.error, res.iters, res.dropped))
+        spans.count("sync.scaled.legacy_read", 5)
         err = float(err)
         self.stats.icp_iters += int(iters)
         self.stats.reg_dropped_points += int(dropped)
@@ -628,6 +651,7 @@ class ScaledPipeline:
         frac = n_in / torch.clamp(am.to(torch.float32).sum(), min=1.0)
         return r2._replace(iters=r1.iters + r2.iters), ierr, frac
 
+    @spans.spanned("scaled.closure_check")
     def _try_loop_closure(self, cur_idx: int) -> bool:
         if (self.lc_cooldown > 0 and self._last_lc_accept is not None
                 and cur_idx - self._last_lc_accept < self.lc_cooldown):
@@ -660,6 +684,7 @@ class ScaledPipeline:
             lanes.append(torch.cat([res.R.reshape(-1), res.t, ierr[None],
                                     frac[None], res.iters[None].float()]))
         lanes, = self.mesh.broadcast([torch.stack(lanes)])
+        spans.count("sync.scaled.lc_read")
         lanes = lanes.cpu().numpy()                   # one read for all
         self.stats.icp_iters += int(lanes[:, 8].sum())
 
@@ -688,6 +713,7 @@ class ScaledPipeline:
         return False
 
     # ── bundle adjustment ────────────────────────────────────────────────
+    @spans.spanned("scaled.ba")
     def _run_ba(self, n_iterations: int):
         """Optimize the graph and carry the corrections into the run state:
         trajectory, current pose, keyframe positions and travel, the submap
@@ -760,6 +786,7 @@ class ScaledPipeline:
             self._replay(self._t(pts), self._t(msk), self._t(Rs),
                          self._t(ts), sign)
 
+    @spans.spanned("scaled.replay")
     def sync_map(self):
         """Bring the grid in line with the corrected keyframe poses if BA
         has run since the last paint (the reference's _rebuild_map,

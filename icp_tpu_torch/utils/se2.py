@@ -11,6 +11,8 @@ import math
 import numpy as np
 import torch
 
+from icp_tpu_torch.utils import spans
+
 
 def wrap_angle(a):
     """Wrap angle(s) to [-pi, pi) (floor-mod, as icp_tpu's ``wrap_angle``;
@@ -74,6 +76,7 @@ def relative_pose_vec(Ti, Tj):
 def make_pose(R, t):
     """Assemble a 3x3 homogeneous matrix from R (..., 2, 2) and t (..., 2)."""
     top = torch.cat([R, t[..., None]], dim=-1)
+    spans.count("sync.se2.make_pose")
     bottom = torch.tensor([0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
     bottom = bottom.expand(R.shape[:-2] + (1, 3))
     return torch.cat([top, bottom], dim=-2)

@@ -353,9 +353,11 @@ def test_gt_init_ba_cut_matches_icp_tpu():
     assert solve["strategy"] == "cg" and solve["last_iterations"] == 15
     assert solve["segment_plan_builds"] == 3, solve
     spent = solve["span_ms"]
-    assert all(spent[k] > 0 for k in ("coarse_correct", "pack", "pcg",
-                                      "store", "total_error")), spent
-    assert spent["coarse_correct_calls"] == spent["pcg_calls"] == 1, spent
+    assert all(spent[f"pose_graph.{k}"] > 0
+               for k in ("coarse_correct", "pack", "pcg", "store",
+                         "total_error")), spent
+    assert (spent["pose_graph.coarse_correct_calls"]
+            == spent["pose_graph.pcg_calls"] == 1), spent
     # on the CPU every wrapper runs its plain version: nothing launches
     assert solve["kernel_launches"] == {"nn_cuda": 0, "nn_min_cuda": 0,
                                         "icp_segment_add": 0}, solve
@@ -391,9 +393,11 @@ def test_gt_init_ba_line_on_the_cut():
         assert line[f"kernel_launches_{tag}"] == {
             "nn_cuda": 0, "nn_min_cuda": 0, "icp_segment_add": 0}
         spent = line[f"span_ms_{tag}"]
-        assert spent["pcg_calls"] == 1 and spent["pcg"] > 0, spent
-        assert "coarse_correct" not in spent          # 2,501 < 5,000 nodes
-        assert spent["pcg"] <= line[f"wall_ms_{tag}"]
+        assert (spent["pose_graph.pcg_calls"] == 1
+                and spent["pose_graph.pcg"] > 0), spent
+        # 2,501 < 5,000 nodes
+        assert "pose_graph.coarse_correct" not in spent
+        assert spent["pose_graph.pcg"] <= line[f"wall_ms_{tag}"]
     assert line["chi2_streamed_post"] < line["chi2_streamed_pre"]
     assert line["chi2_gt_init_post"] < line["chi2_at_gt"]
     assert line["ate_gt_init_m"] < line["ate_streamed_init_m"]
@@ -407,21 +411,21 @@ def test_spans_sum_their_entries_only_while_recording():
 
     from icp_tpu_torch.utils import spans
 
-    with spans.span("outer"):
+    with spans.span("test.outer"):
         pass
     with spans.record("cpu") as spent:
         for _ in range(2):
-            with spans.span("outer"):
-                with spans.span("inner"):
+            with spans.span("test.outer"):
+                with spans.span("test.inner"):
                     time.sleep(0.002)
         with pytest.raises(RuntimeError, match="does not nest"):
             with spans.record("cpu"):
                 pass
-    assert spent["outer_calls"] == spent["inner_calls"] == 2, spent
-    assert spent["outer"] >= spent["inner"] >= 4.0, spent
-    with spans.span("outer"):          # off again
+    assert spent["test.outer_calls"] == spent["test.inner_calls"] == 2, spent
+    assert spent["test.outer"] >= spent["test.inner"] >= 4.0, spent
+    with spans.span("test.outer"):          # off again
         pass
-    assert spent["outer_calls"] == 2
+    assert spent["test.outer_calls"] == 2
 
 
 @pytest.mark.parametrize("kernel", ["nn", "nn_min", "segment_add"])
