@@ -5,6 +5,7 @@
     python3 chip_smoke.py --mesh     # phase 16 and phases 4-6 and 12 it
                                      # is held against (on 1-4 cards)
     python3 chip_smoke.py --syncs    # phases 1-2 and 20
+    python3 chip_smoke.py --graphs   # phases 1-2 and 21
 
 Phases (any failed check ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -884,10 +885,12 @@ def time_pose_graph(dev, card) -> dict:
 
 
 def profile_counts(fn, n):
-    """{launches, h2d, d2h} per call of fn() over n calls: kernel launches
-    and host-to-device / device-to-host copies, from torch.profiler's CUDA
-    runtime and memcpy events; None for a count the profiler did not
-    record."""
+    """{launches, h2d, d2h, kernels, graph_launches} per call of fn() over
+    n calls: the host's kernel launch calls, host-to-device /
+    device-to-host copies, the kernels the card ran (copies and fills left
+    out, as the benchmark's trace reducer leaves them) and the host's
+    graph launches, from torch.profiler's CUDA runtime, memcpy and kernel
+    events; None for a count the profiler did not record."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -896,15 +899,22 @@ def profile_counts(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()]
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.name(), e.device_type() == cuda)
+              for e in prof.profiler.kineto_results.events()]
+    names = [nm for nm, _ in events]
     launches = sum(nm.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
                    for nm in names)
     copies = any(nm.startswith("cudaMemcpy") for nm in names)
     h2d = sum("HtoD" in nm for nm in names)
     d2h = sum("DtoH" in nm for nm in names)
+    kernels = sum(on_card and not nm.startswith(("Memcpy", "Memset"))
+                  and "memcpy" not in nm.lower() for nm, on_card in events)
+    graphs = sum(nm.startswith("cudaGraphLaunch") for nm in names)
     return {"launches": launches / n if launches else None,
             "h2d": h2d / n if (h2d or copies) else None,
-            "d2h": d2h / n if (d2h or copies) else None}
+            "d2h": d2h / n if (d2h or copies) else None,
+            "kernels": kernels / n, "graph_launches": graphs / n}
 
 
 def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
@@ -2273,17 +2283,107 @@ def sync_phase(dev, card, lc_cfg, imu, scans, rels) -> dict:
     return out
 
 
+def graph_phase(dev, card, lc_cfg, imu, scans, rels) -> dict:
+    """Phase 21: icp_core's graph replays against its Python loop on
+    phase 6's path, bit for bit, with every capture in the warm-up."""
+    import importlib
+
+    from icp_tpu_torch.engine import SlamEngine
+    from icp_tpu_torch.utils import spans
+
+    icp_mod = importlib.import_module("icp_tpu_torch.models.icp")
+    replays_graphs = icp_mod._replays_graphs
+    n_steps = len(scans) - 1
+
+    def warm_engine():
+        eng = SlamEngine(lc_cfg, imu=imu, verbose=False, device=dev)
+        eng.process_scan(scans[0], rels[0])
+        eng.warmup()
+        return eng
+
+    def batches(eng):
+        for k in range(1, len(scans), BATCH):
+            eng.process_scans_batched(scans[k:k + BATCH], rels[k:k + BATCH])
+        eng.finish()
+        eng.sync_map()
+        torch.cuda.synchronize(dev)
+
+    runs = {}
+    for name, graphs in (("graph", True), ("eager", False)):
+        icp_mod._replays_graphs = replays_graphs if graphs else (
+            lambda *a: False)
+        try:
+            icp_mod._graphs.clear()
+            with spans.record(dev) as warm:
+                eng = warm_engine()
+            reset_counts()
+            t0 = time.perf_counter()
+            with spans.record(dev) as timed:
+                batches(eng)
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            again = warm_engine()
+            traced = {k: v / n_steps if v is not None else None for k, v in
+                      profile_counts(lambda: batches(again), 1).items()}
+        finally:
+            icp_mod._replays_graphs = replays_graphs
+        runs[name] = {
+            "eng": eng, "wall": wall, "launches": launches,
+            "warm": warm.record.totals()["counts"],
+            "counts": timed.record.totals()["counts"],
+            "traced": traced}
+        c = runs[name]["counts"]
+        log(f"icp_core, {name} chunks, phase 6's path: {n_steps / wall:.2f} "
+            f"scans/s with a live record ({wall:.2f} s) on {card}; warm-up "
+            f"captures {runs[name]['warm'].get('icp.graph_captures', 0)}; "
+            f"timed: graph replays {c.get('icp.graph_replays', 0)}, eager "
+            f"chunks {c.get('icp.eager_chunks', 0)}, captures "
+            f"{c.get('icp.graph_captures', 0)}; launches {launches}; traced "
+            f"a scan: {runs[name]['traced']}")
+    g, e = runs["graph"], runs["eager"]
+    tg, te = (np.stack(r["eng"].pose_trajectory) for r in (g, e))
+    same = (tg.shape == te.shape and np.array_equal(tg, te)
+            and torch.equal(g["eng"].mapper.log_odds, e["eng"].mapper.log_odds)
+            and g["eng"].stats.loop_closures == e["eng"].stats.loop_closures
+            >= 1)
+    log(f"graph replays against the Python loop: trajectory, map and "
+        f"{g['eng'].stats.loop_closures} closures bit-equal: {same}")
+    assert same, "the graph replays' run differs from the Python loop's"
+    gc, ec = g["counts"], e["counts"]
+    assert g["warm"].get("icp.graph_captures", 0) > 0, g["warm"]
+    assert "icp.graph_captures" not in gc, "a capture in the timed run"
+    assert "icp.eager_chunks" not in gc and gc["icp.graph_replays"] > 0, gc
+    assert not [k for k in ec if k.startswith("icp.graph_")], ec
+    assert gc["icp.graph_replays"] == ec["icp.eager_chunks"], (gc, ec)
+    assert g["launches"] == e["launches"], (g["launches"], e["launches"])
+    for k in ("nn.pairs_computed", "nn.pairs_valid", "sync.icp.stop"):
+        assert gc[k] == ec[k], (k, gc[k], ec[k])
+    syncs = {r: sum(v for k, v in c.items() if k.startswith("sync."))
+             for r, c in (("graph", gc), ("eager", ec))}
+    assert syncs["graph"] == syncs["eager"] - ec["sync.icp.consts"], syncs
+    assert "sync.icp.consts" not in gc, gc
+    log(f"syncs a scan: graph {syncs['graph'] / n_steps:.2f}, eager "
+        f"{syncs['eager'] / n_steps:.2f}; kernels the card ran a scan: "
+        f"graph {g['traced']['kernels']:.1f}, eager "
+        f"{e['traced']['kernels']:.1f} (the profiler sees the graphs' "
+        f"kernels: {g['traced']['kernels'] > 0.9 * e['traced']['kernels']})")
+    return {r: {"scans_per_s": n_steps / runs[r]["wall"],
+                "traced_per_scan": runs[r]["traced"],
+                "syncs_per_scan": syncs[r] / n_steps} for r in runs}
+
+
 def main():
     mesh_only = sys.argv[1:] == ["--mesh"]
     syncs_only = sys.argv[1:] == ["--syncs"]
-    if sys.argv[1:] and not (mesh_only or syncs_only):
-        sys.exit("usage: python3 chip_smoke.py [--mesh | --syncs]")
+    graphs_only = sys.argv[1:] == ["--graphs"]
+    if sys.argv[1:] and not (mesh_only or syncs_only or graphs_only):
+        sys.exit("usage: python3 chip_smoke.py [--mesh | --syncs | --graphs]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke test needs a CUDA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     with tempfile.TemporaryDirectory() as td:
-        run(td, mesh_only, syncs_only)
+        run(td, mesh_only, syncs_only, graphs_only)
 
 
 def lc_config(n_scans):
@@ -2295,11 +2395,11 @@ def lc_config(n_scans):
     return lc_cfg
 
 
-def run(td, mesh_only=False, syncs_only=False):
+def run(td, mesh_only=False, syncs_only=False, graphs_only=False):
     """Every phase, or with ``mesh_only`` phase 16 and the phases it is
     held against (4-6 without the kernel timings, 12), or with
-    ``syncs_only`` phase 20; ``td`` holds the bench CSVs and what phase 13
-    writes."""
+    ``syncs_only`` phase 20, or with ``graphs_only`` phase 21; ``td`` holds
+    the bench CSVs and what phase 13 writes."""
     from icp_tpu_torch.engine import SlamEngine
     from icp_tpu_torch.ops.hopper import build
     from icp_tpu_torch.utils.config import SlamConfig
@@ -2330,6 +2430,13 @@ def run(td, mesh_only=False, syncs_only=False):
         syncs = sync_phase(dev, card, lc_config(len(scans)), imu, scans,
                            rels)
         print(json.dumps({"ok": True, "syncs": syncs, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if graphs_only:
+        graphs = graph_phase(dev, card, lc_config(len(scans)), imu, scans,
+                             rels)
+        print(json.dumps({"ok": True, "graphs": graphs, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
@@ -2472,6 +2579,8 @@ def run(td, mesh_only=False, syncs_only=False):
     launches_bench["bench_scaled_resumed"] = resumed["launches"]
     # ── 20. the sync counters against torch's sync warnings ─────────────
     sync_phase(dev, card, lc_cfg, imu, scans, rels)
+    # ── 21. icp_core's graph replays against its Python loop ───────────
+    graph_phase(dev, card, lc_cfg, imu, scans, rels)
 
     # ── 14. the native CSV parser; 15. 3-D ICP and entry() ───────────────
     parser_phase(os.path.join(td, "bench_lidar.csv"))

@@ -12,17 +12,26 @@ spent) every later iteration of the chunk leaves the state untouched, so the
 result is exactly the while-loop's, at the cost of at most ``_CHUNK - 1``
 wasted iterations.
 
+``icp_core`` drives one iteration body (``_iteration``) in one of two ways.
+On a card, in 2-D with the NN kernel, a chunk is a CUDA graph captured once
+per shape (``_Graphs``) and replayed: the same kernels in the same order,
+launched by one call instead of a few hundred from Python. Elsewhere (the
+CPU, 3-D, whose SVD may synchronize, and the plain "xla" query) the chunk
+is the Python loop (``_eager_chunks``).
+
 Convergence as in icp_tpu (reference icp.py:215-218): stop when
 |prev_error - error| < max(error_threshold, 32 ulp of error), where error
 is the mean squared point-to-point NN residual over the valid sources.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
 
 from icp_tpu_torch.ops.eig2 import estimate_normals
+from icp_tpu_torch.ops.hopper import nn_kernel
 from icp_tpu_torch.ops.hopper.nn_kernel import nn_cuda
 from icp_tpu_torch.ops.nn import nn_query
 from icp_tpu_torch.ops.rigid import p2l_solve_2d, p2p_solve_2d, p2p_solve_3d
@@ -32,6 +41,7 @@ from icp_tpu_torch.utils.masking import masked_mean
 
 _F32_EPS = 1.1920929e-07
 _CHUNK = 8          # ICP iterations between two reads of the stop flag
+_GRAPH_KEYS = 32    # captured shapes a device keeps; later ones run eagerly
 
 
 class ICPResult(NamedTuple):
@@ -44,6 +54,208 @@ class ICPResult(NamedTuple):
     # the grid extent, plus the last binning's queries over qcells/qcap);
     # 0 for the brute-force ICPs
     dropped: torch.Tensor | int = 0
+
+
+def _iteration(state, consts, use_gate, use_p2l, use_kernel, out=None):
+    """One ICP iteration. ``state`` is (transformed, r_total, t_total,
+    error, stop, n_in, it), ``consts`` (target, src_mask, tgt_mask,
+    target_normals, min_inliers, max_corr_sq, err_thresh); returns the next
+    state, written into the tensors of ``out`` where given."""
+    transformed, r_total, t_total, error, stop, n_in, it = state
+    target, src_mask, tgt_mask, target_normals, min_inliers, max_corr_sq, \
+        err_thresh = consts
+    o = out if out is not None else (None,) * 7
+    dim = transformed.shape[1]
+    live = ~stop        # it < max_iterations holds: the host counts
+    if use_kernel:
+        d2, nn_idx = nn_cuda(transformed, target, tgt_mask)
+        nn_dists = torch.sqrt(d2)
+        nn_idx = nn_idx.long()
+    else:
+        nn_dists, nn_idx = nn_query(transformed, target, tgt_mask, src_mask)
+    nearest = target[nn_idx]
+    if use_gate:
+        inlier = (nn_dists * nn_dists < max_corr_sq) & src_mask
+    else:
+        inlier = src_mask
+    w = inlier.to(torch.float32)
+    n_in_new = w.sum()
+    abort = n_in_new < min_inliers     # reference icp.py:186-187
+
+    if use_p2l:
+        r, t = p2l_solve_2d(transformed, nearest, target_normals[nn_idx], w)
+    elif dim == 2:
+        r, t = p2p_solve_2d(transformed, nearest, w)
+    else:
+        r, t = p2p_solve_3d(transformed, nearest, w)
+
+    new_transformed = transformed @ r.T + t
+    sq = ((nearest - new_transformed) ** 2).sum(-1)
+    new_error = masked_mean(sq, src_mask)
+    delta = torch.abs(error - new_error)
+    eff_thresh = torch.maximum(err_thresh, 32.0 * _F32_EPS * new_error)
+    converged = delta < eff_thresh
+
+    # on abort keep the state (the reference breaks before applying the
+    # solve); after stop, keep everything. Each select reads only what no
+    # earlier one has written, so ``out`` may be ``state`` itself.
+    apply = live & ~abort
+    transformed = torch.where(apply, new_transformed, transformed, out=o[0])
+    r_total = torch.where(apply, r @ r_total, r_total, out=o[1])
+    t_total = torch.where(apply, t_total @ r.T + t, t_total, out=o[2])
+    error = torch.where(apply, new_error, error, out=o[3])
+    n_in = torch.where(live, n_in_new, n_in, out=o[5])
+    it = torch.add(it, live.to(torch.int32), out=o[6])
+    stop = torch.bitwise_or(stop | abort, converged, out=o[4])
+    return transformed, r_total, t_total, error, stop, n_in, it
+
+
+def _eager_chunks(state, consts, flags, max_iterations):
+    """The Python loop: chunks of ``_CHUNK`` iterations, one stop read
+    each. Returns (state, iterations run)."""
+    done = 0
+    while done < max_iterations:
+        k = min(_CHUNK, max_iterations - done)
+        for _ in range(k):
+            state = _iteration(state, consts, *flags)
+        done += k
+        spans.count("icp.eager_chunks")
+        spans.count("sync.icp.stop")
+        if bool(state[4]):      # one host sync per chunk
+            break
+    return state, done
+
+
+def _replays_graphs(is_cuda: bool, dim: int, nn_impl: str) -> bool:
+    """Whether icp_core replays captured chunks: on a card, in 2-D, with
+    the NN kernel. 3-D ICP's SVD may synchronize, and the "xla" query and
+    the CPU keep the Python loop."""
+    return is_cuda and dim == 2 and nn_impl != "xla"
+
+
+def _chunk_lengths(max_iterations: int) -> list[int]:
+    """The chunk lengths a run of ``max_iterations`` takes."""
+    full, rest = divmod(max_iterations, _CHUNK)
+    return [_CHUNK] * bool(full) + [rest] * bool(rest)
+
+
+class _Graphs:
+    """The captured chunks of one (device, N, M, point-to-line, gated) key
+    over static buffers: ``run`` copies a call's tensors in, replays chunks
+    with one stop read each, and clones the results out, so a later call
+    leaves a returned ICPResult alone."""
+
+    def __init__(self, dev, n, m, use_p2l, use_gate):
+        f32 = torch.float32
+
+        def buf(*shape, dtype=f32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        self.dev = dev
+        self.flags = (use_gate, use_p2l, True)
+        self.state = (buf(n, 2), buf(2, 2), buf(2), buf(),
+                      buf(dtype=torch.bool), buf(), buf(dtype=torch.int32))
+        self.consts = (buf(m, 2), buf(n, dtype=torch.bool),
+                       buf(m, dtype=torch.bool),
+                       buf(m, 2) if use_p2l else None, buf(), buf(), buf())
+        self.values = None      # the host (max_corr_dist, error_threshold)
+        self.chunks = {}        # length -> (graph, nn_cuda launches in it)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.lock = threading.Lock()
+        self.stream = None      # the stream of the last call
+
+    def _capture(self, k):
+        """Capture ``k`` iterations over the buffers, after one eager
+        iteration on the capture stream (its cuBLAS workspace); launch
+        counters keep only what runs."""
+        cur = torch.cuda.current_stream(self.dev)
+        side = _capture_stream(self.dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            _iteration(self.state, self.consts, *self.flags)
+            n1 = nn_kernel.nn_launches
+            g = torch.cuda.CUDAGraph()
+            g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                s = self.state
+                for i in range(k):
+                    s = _iteration(s, self.consts, *self.flags,
+                                   out=self.state if i == k - 1 else None)
+            finally:
+                g.capture_end()
+        cur.wait_stream(side)
+        self.chunks[k] = (g, nn_kernel.nn_launches - n1)
+        nn_kernel.nn_launches = n1      # the eager iteration ran, not these
+        spans.count("icp.graph_captures")
+
+    def run(self, source, src_mask, target, tgt_mask, R_init, t_init,
+            target_normals, n_valid, max_corr_dist, error_threshold,
+            max_iterations):
+        cur = torch.cuda.current_stream(self.dev)
+        if self.stream is not None and self.stream != cur:
+            cur.wait_stream(self.stream)
+        self.stream = cur
+        transformed, r, t, error, stop, n_in, it = self.state
+        tgt, smask, tmask, normals, min_inliers, corr_sq, thresh = self.consts
+        tgt.copy_(target)
+        smask.copy_(src_mask)
+        tmask.copy_(tgt_mask)
+        if normals is not None:
+            normals.copy_(target_normals)
+        torch.clamp(torch.floor(n_valid / 10.0), min=3.0, out=min_inliers)
+        # host constants are filled on the card, never copied to it, and
+        # only when they change
+        values = (max_corr_dist, error_threshold)
+        if values != self.values:
+            corr_sq.fill_(max_corr_dist).pow_(2)
+            thresh.fill_(error_threshold)
+            self.values = values
+        transformed.copy_(source @ R_init.T + t_init)
+        r.copy_(R_init)
+        t.copy_(t_init)
+        error.fill_(float("inf"))
+        stop.zero_()
+        n_in.zero_()
+        it.zero_()
+        for k in _chunk_lengths(max_iterations):
+            if k not in self.chunks:
+                self._capture(k)
+        done = 0
+        while done < max_iterations:
+            k = min(_CHUNK, max_iterations - done)
+            g, launches = self.chunks[k]
+            g.replay()
+            nn_kernel.nn_launches += launches
+            done += k
+            spans.count("icp.graph_replays")
+            spans.count("sync.icp.stop")
+            if bool(stop):          # one host sync per chunk
+                break
+        return (r.clone(), t.clone(), error.clone(), it.clone(),
+                n_in.to(torch.int32)), done
+
+
+_graphs: dict = {}          # (device, N, M, point-to-line, gated) -> _Graphs
+_capture_streams: dict = {}
+
+
+def _capture_stream(dev):
+    s = _capture_streams.get(dev)
+    if s is None:
+        s = _capture_streams[dev] = torch.cuda.Stream(dev)
+    return s
+
+
+def _graphs_for(dev, n, m, use_p2l, use_gate):
+    """The key's captured chunks, made at its first call; None once the
+    device holds ``_GRAPH_KEYS`` keys."""
+    key = (dev, n, m, use_p2l, use_gate)
+    g = _graphs.get(key)
+    if g is None:
+        if sum(k[0] == dev for k in _graphs) >= _GRAPH_KEYS:
+            return None
+        g = _graphs.setdefault(key, _Graphs(dev, n, m, use_p2l, use_gate))
+    return g
 
 
 @spans.spanned("icp.core")
@@ -67,7 +279,9 @@ def icp_core(
     its plain version on CPU tensors. Both break ties toward the lower
     index. For D = 3 the query is always ``nn_query`` and the solve the
     point-to-point SVD, whatever ``nn_impl`` and ``method`` say: icp_tpu
-    has no 3-D kernel and estimates no 3-D normals.
+    has no 3-D kernel and estimates no 3-D normals. On a card in 2-D with
+    the kernel, each chunk replays a CUDA graph captured at the shape's
+    first call (the module's docstring); the result is the same.
     """
     dim = source.shape[1]
     if dim not in (2, 3):
@@ -79,76 +293,42 @@ def icp_core(
     use_kernel = nn_impl != "xla" and dim == 2
 
     n_valid = src_mask.to(f32).sum()
-    min_inliers = torch.clamp(torch.floor(n_valid / 10.0), min=3.0)
-    spans.count("sync.icp.consts", 3)       # the three host scalars below
-    max_corr_sq = torch.tensor(max_corr_dist, dtype=f32, device=dev) ** 2
-    err_thresh = torch.tensor(error_threshold, dtype=f32, device=dev)
     target_normals = (estimate_normals(target, tgt_mask, k=normal_k)
                       if use_p2l else None)
-
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    transformed = source @ R_init.T + t_init
-    r_total, t_total = R_init, t_init
-    error = torch.tensor(float("inf"), dtype=f32, device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
-    n_in = torch.zeros((), dtype=f32, device=dev)
-
-    done = 0
-    while done < max_iterations:
-        for _ in range(min(_CHUNK, max_iterations - done)):
-            live = ~stop        # it < max_iterations holds: the host counts
-            if use_kernel:
-                d2, nn_idx = nn_cuda(transformed, target, tgt_mask)
-                nn_dists = torch.sqrt(d2)
-                nn_idx = nn_idx.long()
-            else:
-                nn_dists, nn_idx = nn_query(transformed, target, tgt_mask,
-                                            src_mask)
-            nearest = target[nn_idx]
-            if use_gate:
-                inlier = (nn_dists * nn_dists < max_corr_sq) & src_mask
-            else:
-                inlier = src_mask
-            w = inlier.to(f32)
-            n_in_new = w.sum()
-            abort = n_in_new < min_inliers     # reference icp.py:186-187
-
-            if use_p2l:
-                r, t = p2l_solve_2d(transformed, nearest,
-                                    target_normals[nn_idx], w)
-            elif dim == 2:
-                r, t = p2p_solve_2d(transformed, nearest, w)
-            else:
-                r, t = p2p_solve_3d(transformed, nearest, w)
-
-            new_transformed = transformed @ r.T + t
-            sq = ((nearest - new_transformed) ** 2).sum(-1)
-            new_error = masked_mean(sq, src_mask)
-            delta = torch.abs(error - new_error)
-            eff_thresh = torch.maximum(err_thresh, 32.0 * _F32_EPS * new_error)
-            converged = delta < eff_thresh
-
-            # on abort keep the state (the reference breaks before applying
-            # the solve); after stop, keep everything
-            apply = live & ~abort
-            transformed = torch.where(apply, new_transformed, transformed)
-            r_total = torch.where(apply, r @ r_total, r_total)
-            t_total = torch.where(apply, t_total @ r.T + t, t_total)
-            error = torch.where(apply, new_error, error)
-            n_in = torch.where(live, n_in_new, n_in)
-            it = it + live.to(torch.int32)
-            stop = stop | abort | converged
-            done += 1
-        spans.count("sync.icp.stop")
-        if bool(stop):          # one host sync per chunk
-            break
+    graphs = (_graphs_for(dev, source.shape[0], target.shape[0], use_p2l,
+                          use_gate)
+              if max_iterations > 0 and _replays_graphs(
+                  source.is_cuda, dim, nn_impl) else None)
+    if graphs is not None:
+        with graphs.lock, torch.cuda.device(dev):
+            (r_total, t_total, error, it, n_in), done = graphs.run(
+                source, src_mask, target, tgt_mask, R_init, t_init,
+                target_normals, n_valid, max_corr_dist, error_threshold,
+                max_iterations)
+    else:
+        min_inliers = torch.clamp(torch.floor(n_valid / 10.0), min=3.0)
+        spans.count("sync.icp.consts", 3)   # the three host scalars below
+        max_corr_sq = torch.tensor(max_corr_dist, dtype=f32, device=dev) ** 2
+        err_thresh = torch.tensor(error_threshold, dtype=f32, device=dev)
+        state = (source @ R_init.T + t_init, R_init, t_init,
+                 torch.tensor(float("inf"), dtype=f32, device=dev),
+                 torch.zeros((), dtype=torch.bool, device=dev),
+                 torch.zeros((), dtype=f32, device=dev),
+                 torch.zeros((), dtype=torch.int32, device=dev))
+        consts = (target, src_mask, tgt_mask, target_normals, min_inliers,
+                  max_corr_sq, err_thresh)
+        state, done = _eager_chunks(state, consts,
+                                    (use_gate, use_p2l, use_kernel),
+                                    max_iterations)
+        _, r_total, t_total, error, _, n_in, it = state
+        n_in = n_in.to(torch.int32)
     if use_kernel and spans.live():
         # the NN kernel's pairs: each launch's padded rows x targets, and
         # the valid ones of the live iterations (summed when read)
         spans.count("nn.pairs_computed",
                     done * source.shape[0] * target.shape[0])
         spans.count("nn.pairs_valid", (n_valid, tgt_mask.sum(), it))
-    return ICPResult(r_total, t_total, error, it, n_in.to(torch.int32))
+    return ICPResult(r_total, t_total, error, it, n_in)
 
 
 def icp(

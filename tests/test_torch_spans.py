@@ -326,6 +326,7 @@ READERS = {
     "engine.pose_graph_ms_per_scan": 2.0,
     "scaled.keyframe_ms_per_scan": 0.5,
     "kernel.nn_cuda.valid_pair_pct": 25.0,
+    "icp.graph_chunk_pct": 75.0,
 }
 
 
@@ -344,6 +345,8 @@ def _hand_made_record():
         spans.count("sync.b", torch.tensor(2))
         spans.count("nn.pairs_computed", 400)
         spans.count("nn.pairs_valid", (torch.tensor(10.0), torch.tensor(10)))
+        spans.count("icp.graph_replays", 3)
+        spans.count("icp.eager_chunks")
     rec = spans._prec
     ms = {"engine.submap": 5.0, "icp.core": 2.0, "icp.large": 10.0,
           "map.paint": 3.0, "map.replay": 5.0, "engine.fetch": 1.0,
