@@ -150,10 +150,14 @@ Phases (any failed check ends the run with a non-zero exit code):
      the summary line.
  20. every host-device sync counted where it is made: phase 6's path
      (the bench sequence with loop closure, one closure; scan 0 to
-     finish) and 64 steps of phase 12's pipeline, each under a live
-     ``utils.spans`` record with torch.cuda.set_sync_debug_mode("warn"):
+     finish), 64 steps of phase 12's pipeline and a patrol slice of config
+     #5 at its 1,200-scan closure settings (``make_patrol``: from the first
+     closure check of the second lap, the map read every 16 steps, through
+     BAs to the first read that replays keyframes), each under
+     a live ``utils.spans`` record with torch.cuda.set_sync_debug_mode("warn"):
      the sum of the ``sync.*`` counters equal to torch's sync warnings,
-     less the event waits torch does not flag (``sync.scaled.drain_wait``);
+     less the event waits and device synchronizes torch does not flag
+     (``sync.scaled.drain_wait``, ``sync.scaled.sync_devices``);
      both tables printed by site. Then the cost of the spans and counters
      with nothing recording: one span and one count timed off, times the
      spans and counts a scan made, against a scan's host time unrecorded.
@@ -1149,6 +1153,26 @@ def icp_large_phase(dev, card, n_points=100_000) -> dict:
             f"bound {1e3 * bound_ms:.2f} us ({bound_by}), "
             f"{100 * bound_ms / op_ms['compact_nn']:.2f} % of it")
     return out
+
+
+PATROL_LAP = 240           # scans a lap of the patrol (0.26 m a scan)
+
+
+def make_patrol(dev, laps=2):
+    """Config #5 at bench_scaled.py's 1,200-scan closure settings
+    (``pipeline_kwargs(1200, 100000)``: closures from 120 scans apart) and
+    ``laps`` laps of a patrol round an 11 x 8.8 m ellipse in config #5's
+    world, each lap's points drawn from a generator of its own."""
+    from icp_tpu_torch.bench import scaled as BS
+    from icp_tpu_torch.parallel.scaled import ScaledPipeline
+    from icp_tpu_torch.utils.synth import LargeScanStream, make_dense_world
+
+    kw = BS.pipeline_kwargs(1200, 100_000, env={})
+    world = make_dense_world(np.random.default_rng(3), extent=100.0)
+    scans = [scan for lap in range(laps) for scan, _ in LargeScanStream(
+        PATROL_LAP, n_points=100_000, extent=20.0, max_range=35.0,
+        noise=0.02, seed=3 + lap, world_points=world)]
+    return ScaledPipeline(dev, **kw), scans
 
 
 def make_scaled(dev, n_scans=SCALED_SCANS, n_points=100_000):
@@ -2185,8 +2209,9 @@ def counted_syncs(dev, fn):
     return spent.record, sites
 
 
-# syncs that torch's debug mode does not flag: an event's wait
-UNFLAGGED_SYNCS = ("sync.scaled.drain_wait",)
+# syncs that torch's debug mode does not flag: an event's wait, a device
+# synchronize (the replay's, held on the patrol slice)
+UNFLAGGED_SYNCS = ("sync.scaled.drain_wait", "sync.scaled.sync_devices")
 
 
 def sync_phase(dev, card, lc_cfg, imu, scans, rels) -> dict:
@@ -2226,8 +2251,42 @@ def sync_phase(dev, card, lc_cfg, imu, scans, rels) -> dict:
         pipe.finish()
 
     rec_s, sites_s = counted_syncs(dev, scaled_steps)
+
+    # the closure path: a patrol's first lap and a few scans unrecorded,
+    # then, recorded, the steps from the first closure check with
+    # candidates, the map read every 16 steps, until a read replays
+    # keyframes (BAs move few keyframes past the replay's tolerance)
+    pipe, patrol = make_patrol(dev, laps=3)
+    first = PATROL_LAP - 8
+    for scan in patrol[:first]:
+        pipe.step(scan)
+    st = pipe.stats
+    before = (st.lc_checked, st.ba_runs, st.replayed_keyframes)
+    n_patrol = [0]
+
+    def patrol_steps():
+        for k in range(first, len(patrol)):
+            pipe.step(patrol[k])
+            n_patrol[0] += 1
+            if (k + 1) % 16 == 0:
+                pipe.sync_map()
+                if st.replayed_keyframes > before[2]:
+                    break
+        pipe.finish()
+
+    rec_p, sites_p = counted_syncs(dev, patrol_steps)
+    c = rec_p.totals()["counts"]
+    log(f"patrol slice: {n_patrol[0]} steps from scan {first}: "
+        f"{pipe.stats.lc_checked - before[0]} checks with candidates, "
+        f"{pipe.stats.ba_runs - before[1]} BAs, "
+        f"{c.get('scaled.replay_keyframes', 0)} keyframes replayed; counters "
+        f"{ {k: v for k, v in c.items() if k.startswith('scaled.')} }")
+    assert pipe.stats.lc_checked > before[0] and c.get("scaled.lc_checks")
+    assert pipe.stats.ba_runs > before[1] and c.get("scaled.ba_nodes")
+    assert c.get("scaled.replay_keyframes"), "the patrol slice replayed none"
     for path, rec, sites, n in (("engine", rec_e, sites_e, len(scans)),
-                                ("scaled", rec_s, sites_s, len(steps))):
+                                ("scaled", rec_s, sites_s, len(steps)),
+                                ("patrol", rec_p, sites_p, n_patrol[0])):
         counts = {k: v for k, v in rec.totals()["counts"].items()
                   if k.startswith("sync.")}
         flagged = sum(v for k, v in counts.items()
@@ -2240,7 +2299,7 @@ def sync_phase(dev, card, lc_cfg, imu, scans, rels) -> dict:
         out[path] = {"counted": sum(counts.values()), "flagged": flagged,
                      "warned": warned, "per_scan": sum(counts.values()) / n}
     assert closures >= 1, "the recorded engine log closed no loop"
-    for path in ("engine", "scaled"):
+    for path in ("engine", "scaled", "patrol"):
         assert out[path]["flagged"] == out[path]["warned"], (path, out[path])
 
     # the cost when off: spans and counts a scan (the recorded log's),

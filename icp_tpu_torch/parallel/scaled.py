@@ -307,16 +307,18 @@ class ScaledPipeline:
                 torch.cuda.synchronize(d)
 
     # ── helpers ──────────────────────────────────────────────────────────
-    def _t(self, a, dtype=None):
+    def _t(self, a, dtype=None, site="sync.scaled.upload"):
+        """``a`` on the device; a host array's copy counts at ``site``."""
         if not isinstance(a, torch.Tensor):
-            spans.count("sync.scaled.upload")
+            spans.count(site)
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def _set_dev_carry(self, T, inc):
-        self._dev_pR = self._t(T[:2, :2])
-        self._dev_pt = self._t(T[:2, 2])
-        self._dev_iR = self._t(inc[:2, :2])
-        self._dev_it = self._t(inc[:2, 2])
+        site = "sync.scaled.carry_upload"
+        self._dev_pR = self._t(T[:2, :2], site=site)
+        self._dev_pt = self._t(T[:2, 2], site=site)
+        self._dev_iR = self._t(inc[:2, :2], site=site)
+        self._dev_it = self._t(inc[:2, 2], site=site)
 
     def _downsample_kf(self, pts_pad, mask):
         """Compact voxelized keyframe cloud (host array)."""
@@ -426,11 +428,12 @@ class ScaledPipeline:
         n = len(self.kf_points)
         self._ring_pts.zero_()
         self._ring_mask.zero_()
+        site = "sync.scaled.ring_upload"
         for i in range(max(0, n - S), n):
             kf_p, kf_m = pad_points(self.kf_points[i], self.kf_cap)
             T = self.trajectory[i]
-            self._ring_push(self._t(kf_p), self._t(kf_m), self._t(T[:2, :2]),
-                            self._t(T[:2, 2]), i % S)
+            self._ring_push(*(self._t(a, site=site) for a in (
+                kf_p, kf_m, T[:2, :2], T[:2, 2])), i % S)
 
     def _fused_reg(self, sp, sm, slot: int):
         """One scan's registration with the pose carried on the device:
@@ -673,13 +676,16 @@ class ScaledPipeline:
         cands = [int(c) for c in order[:self.lc_max_candidates]]
         self.stats.lc_checked += 1
         self.stats.lc_candidates += len(cands)
+        spans.count("scaled.lc_checks")
+        spans.count("scaled.lc_lanes", len(cands))
 
-        ap, am = (self._t(a) for a in pad_points(self.kf_points[cur_idx],
-                                                 self.kf_cap))
+        site = "sync.scaled.lc_upload"
+        ap, am = (self._t(a, site=site) for a in pad_points(
+            self.kf_points[cur_idx], self.kf_cap))
         lanes = []
         for c in cands:
-            bp, bm = (self._t(a) for a in pad_points(self.kf_points[c],
-                                                     self.kf_cap))
+            bp, bm = (self._t(a, site=site) for a in pad_points(
+                self.kf_points[c], self.kf_cap))
             res, ierr, frac = self._lc_verify(ap, am, bp, bm)
             lanes.append(torch.cat([res.R.reshape(-1), res.t, ierr[None],
                                     frac[None], res.iters[None].float()]))
@@ -708,6 +714,7 @@ class ScaledPipeline:
                 cur_idx, cand, z, np.eye(3, dtype=np.float32) * w,
                 robust=self.lc_robust)
             self.stats.loop_closures += 1
+            spans.count("scaled.lc_accepts")
             self._last_lc_accept = cur_idx
             return True
         return False
@@ -719,6 +726,7 @@ class ScaledPipeline:
         trajectory, current pose, keyframe positions and travel, the submap
         ring, the device pose carry, and the map (marked dirty; repainted at
         the next read)."""
+        spans.count("scaled.ba_nodes", self.pose_graph.n_nodes)
         self.pose_graph.optimize(n_iterations=n_iterations, fix_node=0)
         self.stats.ba_iterations += n_iterations
         self.stats.ba_runs += 1
@@ -766,7 +774,9 @@ class ScaledPipeline:
         """Paint (sign=+1) or un-paint (sign=-1) the given keyframes at
         the given poses, in replay_chunk-sized batches. Host-side chunk
         assembly is timed apart (stats.wall_replay_fill)."""
+        spans.count("scaled.replay_keyframes", len(idxs))
         C = self.replay_chunk
+        site = "sync.scaled.replay_upload"
         for c0 in range(0, len(idxs), C):
             tf = time.perf_counter()
             group = idxs[c0:c0 + C]
@@ -783,8 +793,8 @@ class ScaledPipeline:
                 Rs[k] = T[:2, :2]
                 ts[k] = T[:2, 2]
             self.stats.wall_replay_fill += time.perf_counter() - tf
-            self._replay(self._t(pts), self._t(msk), self._t(Rs),
-                         self._t(ts), sign)
+            self._replay(*(self._t(a, site=site) for a in (pts, msk, Rs, ts)),
+                         sign)
 
     @spans.spanned("scaled.replay")
     def sync_map(self):
@@ -794,7 +804,8 @@ class ScaledPipeline:
         tolerance (0.3 cell in translation, the equivalent arc at max range
         in rotation) are un-painted at the pose they were painted at and
         repainted at the new one; when more than half moved, the grid is
-        zeroed and replayed whole."""
+        zeroed and replayed whole, the steps still in flight bookkept
+        first (their paint is in the grid dropped)."""
         if not self._map_dirty:
             return
         t0 = time.perf_counter()
@@ -814,7 +825,11 @@ class ScaledPipeline:
             moved = np.where((d_t > tol_t) | (d_yaw > tol_y))[0]
         else:
             moved = np.zeros(0, np.int64)
-        if len(moved) > 0.5 * K:
+        full = len(moved) > 0.5 * K
+        if full:
+            if self._pending:
+                self._drain()
+                K = len(self.kf_points)
             self.blocks = self._zero_blocks()
             self._replay_set(list(range(K)), self.trajectory, +1.0)
             self._painted_T = [self.trajectory[k].copy() for k in range(K)]
@@ -826,8 +841,7 @@ class ScaledPipeline:
                 self._painted_T[k] = self.trajectory[k].copy()
         self._sync_devices()                      # honest timing
         self.stats.wall_replay += time.perf_counter() - t0
-        self.stats.replayed_keyframes += (
-            K if len(moved) > 0.5 * K else int(len(moved)))
+        self.stats.replayed_keyframes += K if full else int(len(moved))
         self._map_dirty = False
 
     def time_gn_step(self, reps: int = 5) -> float:

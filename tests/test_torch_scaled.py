@@ -268,6 +268,29 @@ def test_incremental_replay_matches_full(scans):
     assert (np.abs(full) > 0.1).sum() > 100
 
 
+def test_full_replay_keeps_steps_in_flight(scans):
+    """A full replay while steps are still in flight (painted, not yet
+    bookkept) repaints them too: the map equals a full replay of the
+    drained state."""
+    pts, _ = scans
+    pipe = _torch_pipe()
+    for p in pts[:10]:
+        pipe.step(p)
+    pipe.finish()
+    for p in pts[10:14]:
+        pipe.step(p)
+    assert len(pipe._pending) == 4
+    pipe._painted_T = []                   # every keyframe moved: full
+    pipe._map_dirty = True
+    pipe.sync_map()
+    assert not pipe._pending and pipe.stats.replayed_keyframes == 14
+    got = pipe.log_odds.numpy().copy()
+    pipe._painted_T = []
+    pipe._map_dirty = True
+    pipe.sync_map()
+    np.testing.assert_array_equal(got, pipe.log_odds.numpy())
+
+
 def test_scaled_cli_mode_cpu(tmp_path):
     """``python -m icp_tpu_torch.cli --scaled --device cpu`` on
     test_scaled_pipeline.py:242-281's config: the map written, 30 poses,
