@@ -990,7 +990,6 @@ def features_phases(SlamConfig, ate, dev, card, gt, scans, rels, imu,
     log(f"loop closure with 'both': loop_closures={s.loop_closures} "
         f"lc_checks={s.lc_checks} lc_pairs={s.lc_pairs} "
         f"lc_requeued_scans={s.lc_requeued_scans} "
-        f"wall_lc_verify={s.wall_lc_verify:.3f} s "
         f"wall_loop_closure={s.wall_loop_closure:.3f} s; "
         f"{n_steps / wall_b:.2f} scans/s ({wall_b:.2f} s, warmup included) "
         f"on {card}; launches {launches['lc_both']}")
@@ -1860,8 +1859,7 @@ def mesh_phase(dev, card, td, base) -> dict:
         f"dist_node_threshold 2): loop_closures={s.loop_closures} "
         f"closures {closures(eng)} (phase 6: {closures(ref)}), "
         f"last_strategy {eng.pose_graph.last_strategy}, lc_pairs={s.lc_pairs} "
-        f"lc_groups={s.lc_groups} wall_lc_verify={s.wall_lc_verify:.3f} s "
-        f"wall_lc_apply={s.wall_lc_apply:.3f} s; ATE {ate_e:.4f} m (bound "
+        f"lc_groups={s.lc_groups}; ATE {ate_e:.4f} m (bound "
         f"{LC_ATE_BOUND_M} m), max |mesh - phase 6| position {1e3 * gap_e:.3f} mm "
         f"(bound 5 mm + the single-device spread {1e3 * base['spread']:.3f} mm); "
         f"{(len(base['scans']) - 1) / wall_e:.2f} scans/s; launches {launches_e} "
@@ -2579,8 +2577,6 @@ def run(td, mesh_only=False, syncs_only=False, graphs_only=False):
     log(f"loop-closure path: loop_closures={s.loop_closures} "
         f"lc_checks={s.lc_checks} lc_pairs={s.lc_pairs} "
         f"lc_groups={s.lc_groups} lc_requeued_scans={s.lc_requeued_scans} "
-        f"wall_lc_verify={s.wall_lc_verify:.3f} s "
-        f"wall_lc_apply={s.wall_lc_apply:.3f} s "
         f"wall_loop_closure={s.wall_loop_closure:.3f} s; "
         f"{n_steps / wall_lc:.2f} scans/s ({wall_lc:.2f} s, warmup included) "
         f"on {card}; launches {launches_lc}")

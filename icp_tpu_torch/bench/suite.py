@@ -220,10 +220,6 @@ def bench_lc(dev, seq):
             "ate_m": ate_lc, "ate_no_lc_m": ate_off,
             "ate_improvement_m": ate_off - ate_lc,
             "wall_lc_s": d("wall_loop_closure"),
-            "wall_lc_verify_s": d("wall_lc_verify"),
-            "wall_lc_apply_s": d("wall_lc_apply"),
-            "wall_fetch_s": d("wall_fetch"),
-            "wall_bookkeep_s": d("wall_bookkeep"),
             "lc_requeued_scans": d("lc_requeued_scans"),
             "lc_checks": d("lc_checks"), "lc_pairs": d("lc_pairs"),
             "lc_groups": d("lc_groups"),

@@ -17,8 +17,10 @@ on node positions, verification of each (node, candidate) pair by rotation
 search + ICP on the raw sensor-frame scans, the reference's accept-first
 arbitration, a cooldown, then a pose-graph solve that rewrites the history
 and resyncs the fused state; the map replay is deferred to the next read
-(``sync_map``). Batched, chunks run optimistically and roll back at an
-accepted closure (``_process_scans_lc``). ``save_checkpoint`` /
+(``sync_map``). Batched, each chunk is read and bookkept in the call that
+hands it over; an accepted closure inside a chunk puts the chunk's later
+scans back at the front of the backlog (``_run_backlog``).
+``save_checkpoint`` /
 ``load_checkpoint`` use icp_tpu's npz keys, so a checkpoint of either
 package loads into the other.
 
@@ -127,10 +129,6 @@ class SlamStats:
     wall_registration: float = 0.0
     wall_mapping: float = 0.0      # (the modular path's; 0 on the fused)
     wall_loop_closure: float = 0.0
-    wall_lc_verify: float = 0.0    # verification of the pairs inside ^
-    wall_lc_apply: float = 0.0     # optimize + history rewrite + resync
-    wall_fetch: float = 0.0        # device-to-host read of chunk outputs
-    wall_bookkeep: float = 0.0     # host per-scan bookkeeping (LC path)
     lc_requeued_scans: int = 0     # rollback re-registrations after accepts
 
 
@@ -188,10 +186,7 @@ class SlamEngine:
         self._step_fn = None
         self._batch_fn = None
         self._state: SlamState | None = None
-        self._pending: list = []          # batches whose results are unread
-        self._lc_inflight = None          # LC path: chunk not yet bookkept
-        self._lc_backlog: list = []       # LC path: scans not yet dispatched
-        self._last_enq_rel = None         # rel time of last enqueued scan
+        self._backlog: list = []          # (scan, rel time) not yet run
         self._map_dirty = False           # closure happened; replay on read
         self._last_lc_accept = None       # node idx of last accepted closure
         self._ray_bound: int | None = None
@@ -706,7 +701,6 @@ class SlamEngine:
         cfg = self.cfg
         if not cfg.live_map or self.mapper is None:
             return None
-        self._drain_pending()
         every = max(int(cfg.snapshot_every), 1)
         if self.stats.scans // every <= self._snapshot_scans // every:
             return None
@@ -776,29 +770,12 @@ class SlamEngine:
                   f"pos=({pos[0]:+.3f}, {pos[1]:+.3f})  yaw={yaw:+.2f} deg")
         return True
 
-    def _arbitrate_lc_chunk(self, chunk_s: list, chunk_r: list, outs_dev):
-        """Read one chunk's results, verify its loop-closure candidates,
-        then bookkeep with the reference's per-scan arbitration
-        (slam.py:565-620). Returns (n_accepted, rollback_j): rollback_j is
-        the chunk position of an accepted closure (the scans after it were
-        not bookkept and must be re-queued), or None.
-
-        Exact as icp_tpu's: before an accept inside the chunk no
-        optimization has run, so the gates (pure functions of the node
-        positions, all in the chunk's output) see what the reference sees;
-        verification registers raw scans, so verdicts can be computed up
-        front, and an accept discards every later verdict.
-        """
+    def _verify_chunk(self, scans: list, poses, acc: list) -> dict:
+        """Candidate gates and verification of a chunk's accepted scans, at
+        the positions the chunk's results give them, before any of them is
+        bookkept. Returns {chunk pos j: (node idx, candidates, verdicts)}
+        for the scans with candidates."""
         cfg = self.cfg
-        t_f = time.perf_counter()
-        outs = self._fetch(outs_dev)
-        self.stats.wall_fetch += time.perf_counter() - t_f
-        self._check_sub_saturation(outs.sub_n)
-        self._check_sweep_drop(outs.sweep_drop)
-        n = len(chunk_s)
-        acc = [bool(outs.accepted[j]) for j in range(n)]
-
-        # ── candidate gates + verification, before any bookkeeping ───────
         t2 = time.perf_counter()
         verdicts_by_j: dict[int, tuple] = {}
         n_hist = len(self.scan_history)
@@ -809,11 +786,11 @@ class SlamEngine:
             )
             chunk_nodes = []           # (chunk pos j, node idx, position)
             k = n_hist
-            for j in range(n):
+            for j in range(len(scans)):
                 if not acc[j]:
                     continue
                 chunk_nodes.append(
-                    (j, k, np.asarray(outs.pose[j][:2, 2], np.float32))
+                    (j, k, np.asarray(poses[j][:2, 2], np.float32))
                 )
                 k += 1
             jobs = []                  # (j, node_idx, candidates)
@@ -834,42 +811,67 @@ class SlamEngine:
                     if cands:
                         jobs.append((j, ni, cands))
         if jobs:
-            pts_of = {ni: chunk_s[j] for j, ni, _ in chunk_nodes}
+            pts_of = {ni: scans[j] for j, ni, _ in chunk_nodes}
 
             def node_points(ci):
                 return (self.scan_history[ci].points if ci < n_hist
                         else pts_of[ci])
             pairs = [
-                (chunk_s[j], node_points(ci))
+                (scans[j], node_points(ci))
                 for j, ni, cands in jobs
                 for ci, _ in cands
             ]
             self.stats.lc_checks += len(jobs)
             self.stats.lc_pairs += len(pairs)
-            tv = time.perf_counter()
             verd = self._lc_verify_pairs(pairs)
-            self.stats.wall_lc_verify += time.perf_counter() - tv
             off = 0
             for j, ni, cands in jobs:
                 verdicts_by_j[j] = (ni, cands, verd[off:off + len(cands)])
                 off += len(cands)
         self.stats.wall_loop_closure += time.perf_counter() - t2
+        return verdicts_by_j
+
+    def _bookkeep_chunk(self, scans: list, rel_times: list, outs_dev):
+        """Read one chunk's results and bookkeep its scans in order, each
+        through ``_bookkeep_fused``. Under loop closure the candidate gates
+        and the verification of the whole chunk run first; then each
+        accepted scan is arbitrated as the reference does (slam.py:565-620),
+        and the first verdict under the error threshold is applied
+        (``_lc_apply``), the fused state resynced from the corrected history
+        and the bookkeeping stopped there. Returns (n_accepted, j): j is the
+        chunk position of the accepted closure, whose later scans were
+        registered against the state before it and are not bookkept, or
+        None.
+
+        Exact as icp_tpu's: before an accept inside the chunk no
+        optimization has run, so the gates (pure functions of the node
+        positions, all in the chunk's output) see what the reference sees;
+        verification registers raw scans, so verdicts can be computed up
+        front, and an accept discards every later verdict.
+        """
+        cfg = self.cfg
+        outs = self._fetch(outs_dev)
+        self._check_sub_saturation(outs.sub_n)
+        self._check_sweep_drop(outs.sweep_drop)
+        n = len(scans)
+        acc = [bool(outs.accepted[j]) for j in range(n)]
+
+        verdicts_by_j = (self._verify_chunk(scans, outs.pose, acc)
+                         if cfg.lc_enabled else {})
 
         # ── bookkeeping + the reference's per-scan arbitration ───────────
         n_ok = 0
         hit = None
         with spans.span("engine.bookkeep"):
             for j in range(n):
-                t_b = time.perf_counter()
                 ok = self._bookkeep_fused(
-                    chunk_s[j],
+                    scans[j],
                     np.asarray(outs.pose[j]), float(outs.error[j]),
                     acc[j], bool(outs.sub_applied[j]),
                     float(outs.err_inc[j]), int(outs.iters[j]),
                 )
-                self.prev_points = chunk_s[j]
-                self.prev_rel_time = chunk_r[j]
-                self.stats.wall_bookkeep += time.perf_counter() - t_b
+                self.prev_points = scans[j]
+                self.prev_rel_time = rel_times[j]
                 n_ok += bool(ok)
                 if not ok or j not in verdicts_by_j:
                     continue
@@ -895,13 +897,9 @@ class SlamEngine:
                 self.stats.wall_loop_closure += time.perf_counter() - t2
         if hit is None:
             return n_ok, None
-        t_a = time.perf_counter()
         with spans.span("engine.lc_apply"):
             self._lc_apply(ni, *hit)
-            self._resync_state_after_lc(chunk_s[j])
-        self.stats.wall_lc_apply += time.perf_counter() - t_a
-        # IMU deltas of the re-queued scans chain off the accepted node
-        self._last_enq_rel = chunk_r[j]
+            self._resync_state_after_lc(scans[j])
         self.stats.wall_loop_closure += time.perf_counter() - t2
         return n_ok, j
 
@@ -913,79 +911,58 @@ class SlamEngine:
         spans.count("sync.engine.fetch", len(outs_dev))
         return type(outs_dev)(*(f.cpu().numpy() for f in outs_dev))
 
-    def _process_scans_lc(self, scans: list, rel_times: list) -> int:
-        """Optimistic batching under loop closure (icp_tpu's pipeline).
-
-        One chunk is kept in flight across calls: chunk k+1 is dispatched
-        before chunk k is arbitrated, and ``finish()`` drains the tail.
-        When a closure is accepted at chunk position j, everything after it
-        (the chunk's tail and the whole next chunk, both computed against
-        the pre-closure state) is re-queued, the closure is applied, the
-        fused state is resynced from the corrected history and stepping
-        resumes at j+1. A stale chunk may have painted the grid, but every
-        accept marks the map dirty, so the next read replays the history
-        over a zeroed grid. The port's step reads stop flags on the host,
-        so "in flight" buys no overlap here; the structure is kept so the
-        re-queue counts are icp_tpu's.
-        """
-        self._lc_backlog.extend(zip(scans, rel_times))
-        return self._lc_pump(flush=False)
-
-    def _lc_pump(self, flush: bool) -> int:
-        accepted = 0
-        B = int(self.cfg.batch_scans)
-
-        def dispatchable() -> bool:
-            return bool(self._lc_backlog) and (
-                flush or len(self._lc_backlog) >= B
-            )
-
-        def dispatch_next():
-            chunk = self._lc_backlog[:B]
-            del self._lc_backlog[:B]
-            cs = [p for p, _ in chunk]
-            cr = [r for _, r in chunk]
-            return cs, cr, self._dispatch_chunk_async(cs, cr)
-
-        while True:
-            if self._lc_inflight is None:
-                if not dispatchable():
-                    return accepted
-                self._lc_inflight = dispatch_next()
-                continue
-            # one chunk in flight: dispatch the next before arbitrating it
-            nxt = dispatch_next() if dispatchable() else None
-            if nxt is None and not flush:
-                # keep the chunk in flight for the next call or finish()
-                return accepted
-            cs, cr, outs = self._lc_inflight
-            n_ok, rollback_j = self._arbitrate_lc_chunk(cs, cr, outs)
-            accepted += n_ok
-            if rollback_j is not None:
-                requeue = list(zip(cs[rollback_j + 1:],
-                                   cr[rollback_j + 1:]))
-                if nxt is not None:
-                    requeue += list(zip(nxt[0], nxt[1]))
-                self.stats.lc_requeued_scans += len(requeue)
-                self._lc_backlog[:0] = requeue
-                self._lc_inflight = None
-            else:
-                self._lc_inflight = nxt
-
     def process_scans_batched(self, scans: list, rel_times: list) -> int:
-        """Fused batch path: B scans through one ``batch`` call. Results are
-        bookkept one call later (``_drain_pending``) or at ``finish()``;
-        with loop closure, chunks run optimistically with rollback at
-        accepted closures (``_process_scans_lc``). Before the first scan
-        and on the modular path the scans go through ``process_scan`` one
-        by one. Returns the number of accepted scans bookkept by this
-        call."""
+        """Fused batch path: the scans join the backlog and run through the
+        chunk loop (``_run_backlog``), each chunk read and bookkept before
+        the call returns. Without loop closure the scans of one call run as
+        one batch; under loop closure chunks of ``batch_scans`` are taken
+        from the backlog, and a shorter remainder waits for the next call
+        or ``finish()``. Before the first scan and on the modular path the
+        scans go through ``process_scan`` one by one. Returns the number of
+        accepted scans bookkept by this call."""
         if self._state is None:
             return sum(bool(self.process_scan(p, r))
                        for p, r in zip(scans, rel_times))
-        if self.cfg.lc_enabled:
-            return self._process_scans_lc(scans, rel_times)
-        return self._dispatch_batch(scans, rel_times)
+        self._backlog.extend(zip(scans, rel_times))
+        return self._run_backlog(flush=False)
+
+    def finish(self):
+        """Run and bookkeep the scans left in the backlog, a last chunk
+        shorter than ``batch_scans`` included (call after the last batch).
+        Returns the number of accepted scans it bookkept."""
+        return self._run_backlog(flush=True)
+
+    def _run_backlog(self, flush: bool) -> int:
+        """The chunk loop: take a chunk from the front of the backlog (all
+        of it without loop closure; ``batch_scans`` scans, or fewer only
+        when ``flush``, under loop closure), dispatch it, then read and
+        bookkeep it. An accepted closure at chunk position j puts the
+        chunk's scans after j back at the front of the backlog, to run again
+        against the corrected state at the head of the next chunk: the
+        chunks take the scans icp_tpu's take, where the chunk it keeps in
+        flight is re-queued too. A stale chunk may have painted the grid,
+        but every accept marks the map dirty, so the next read replays the
+        history over a zeroed grid."""
+        lc = bool(self.cfg.lc_enabled)
+        B = int(self.cfg.batch_scans) if lc else len(self._backlog)
+        accepted = 0
+        while self._backlog and (flush or len(self._backlog) >= B):
+            chunk = self._backlog[:B]
+            del self._backlog[:B]
+            scans = [p for p, _ in chunk]
+            rels = [r for _, r in chunk]
+            outs = self._dispatch_chunk_async(scans, rels)
+            t0 = time.perf_counter()
+            n_ok, j = self._bookkeep_chunk(scans, rels, outs)
+            if not lc:
+                # registration's wall takes the read and the bookkeeping
+                # where no loop-closure wall does
+                self.stats.wall_registration += time.perf_counter() - t0
+            accepted += n_ok
+            if j is not None:
+                self.stats.lc_requeued_scans += len(chunk) - j - 1
+                self._backlog[:0] = chunk[j + 1:]
+        return accepted
 
     def _pack_batch(self, scans: list, rel_times: list, prev_rel):
         """Pack B scans + their IMU lookups into fixed-shape host arrays
@@ -1024,42 +1001,20 @@ class SlamEngine:
         return (pts, msk, deltas, yaws), degenerate
 
     def _dispatch_chunk_async(self, scans: list, rel_times: list):
-        """One fused batch whose results stay on the device until they are
-        bookkept (``_drain_pending``, ``_arbitrate_lc_chunk``). IMU deltas
-        chain off the last enqueued scan. (icp_tpu pads a loop-closure
-        chunk to B scans to reuse one compiled program; padding scans are
-        no-ops, so the port runs the chunk as it is.)"""
-        prev_rel = (self._last_enq_rel if self._last_enq_rel is not None
-                    else self.prev_rel_time)
+        """Pack, upload and run one fused batch; its results stay on the
+        device until ``_bookkeep_chunk`` reads them. IMU deltas chain off
+        the last bookkept scan (``prev_rel_time``). (icp_tpu pads a
+        loop-closure chunk to B scans to reuse one compiled program;
+        padding scans are no-ops, so the port runs the chunk as it is.)"""
         with spans.span("engine.pack"):
-            arrays, degenerate = self._pack_batch(scans, rel_times, prev_rel)
+            arrays, degenerate = self._pack_batch(scans, rel_times,
+                                                  self.prev_rel_time)
             t0 = time.perf_counter()
             arrays = self._to_device(*arrays)
         self._state, outs = self._batch_fn(self._state, *arrays,
                                            degenerate=degenerate)
-        self._last_enq_rel = rel_times[-1]
         self.stats.wall_registration += time.perf_counter() - t0
         return outs
-
-    def _dispatch_batch(self, scans: list, rel_times: list) -> int:
-        """Run len(scans) scans through the fused batch; bookkeep the
-        previous batch's results after this one is queued."""
-        outs = self._dispatch_chunk_async(scans, rel_times)
-        t0 = time.perf_counter()
-        accepted = self._drain_pending()
-        # snapshot the lists: callers may mutate/clear them after we return
-        self._pending.append((list(scans), list(rel_times), outs))
-        self.stats.wall_registration += time.perf_counter() - t0
-        return accepted
-
-    def finish(self):
-        """Bookkeep the results still pending and, under loop closure,
-        drain the chunk in flight and the backlog (call after the last
-        batch)."""
-        accepted = self._drain_pending()
-        if self._lc_inflight is not None or self._lc_backlog:
-            accepted += self._lc_pump(flush=True)
-        return accepted
 
     def warmup(self):
         """Run every device path of the run once, so allocator and kernel
@@ -1116,30 +1071,8 @@ class SlamEngine:
                   f"(tpu.sweep_src_capacity/sweep_tgt_capacity too small); "
                   f"counted in stats.sweep_dropped_voxels")
 
-    def _drain_pending(self) -> int:
-        """Bookkeep every batch whose results are still on the device."""
-        accepted = 0
-        while self._pending:
-            scans, rel_times, outs = self._pending.pop(0)
-            outs = self._fetch(outs)
-            self._check_sub_saturation(outs.sub_n)
-            self._check_sweep_drop(outs.sweep_drop)
-            with spans.span("engine.bookkeep"):
-                for i in range(len(scans)):
-                    ok = self._bookkeep_fused(
-                        scans[i],
-                        np.asarray(outs.pose[i]), float(outs.error[i]),
-                        bool(outs.accepted[i]), bool(outs.sub_applied[i]),
-                        float(outs.err_inc[i]), int(outs.iters[i]),
-                    )
-                    accepted += bool(ok)
-                    self.prev_points = scans[i]
-                    self.prev_rel_time = rel_times[i]
-        return accepted
-
     def _process_scan_fused(self, points_2d, rel_time_us, imu_yaw,
                             imu_delta) -> bool:
-        self._drain_pending()
         t0 = time.perf_counter()
         with spans.span("engine.pack"):
             sp, sm = self._to_device(*_pad_fixed(points_2d, self._cap))

@@ -15,7 +15,7 @@ scaled pipeline at full width, 400 scans, the terminal BA) with
 JSON line: scans/s of each headline pass (``main_sps_cold`` the first,
 ``main_sps_warm`` the second) and of config #5 after 3 warm scans, both
 ATEs, the largest pose difference between the two headline passes, the
-loop-closure pass's ``wall_lc_apply`` and ATE, the solves' ms, the GN
+loop-closure pass's ATE and closures, the solves' ms, the GN
 steps' ms, and the card with its power limit. Run it as a file, not with
 ``-m``: the package must come from TREE. Compare two checkouts only
 within one call on one card, in turns (A, B, B, A).
@@ -81,7 +81,6 @@ def main(argv=None):
                       "main_sps_warm": sps2, "main_sps_cold": sps1,
                       "main_ate": ate_m,
                       "main_two_pass_max_abs": spread,
-                      "lc_wall_lc_apply": e_lc.stats.wall_lc_apply,
                       "lc_ate": ate_lc, "lc_closures": e_lc.stats.loop_closures,
                       "optimize_1024_ms": solve_ms,
                       "time_gn_step_ms": gn_ms,

@@ -111,6 +111,39 @@ def test_slice_matches_icp_tpu(dryrun, use_imu):
     assert et.pose_graph.n_edges == ej.pose_graph.n_edges
 
 
+@pytest.mark.parametrize("lc", [False, True], ids=["lc_off", "lc_on"])
+def test_batch_is_bookkept_in_the_call_that_hands_it_over(dryrun, lc):
+    """process_scans_batched bookkeeps the scans it is handed before it
+    returns: after each call of batch_scans scans, stats.scans counts every
+    scan handed over so far and pose_trajectory holds each accepted one.
+    Under loop closure a call of fewer than batch_scans scans leaves them
+    for the next call or finish(); without it they run at once."""
+    import copy
+
+    gt, scans, rels, imu_f = dryrun
+    d = copy.deepcopy(DRYRUN_CFG)
+    d["loop_closure"]["enabled"] = lc
+    eng = TEngine(TConfig.from_dict(d), imu=TIMU(imu_f), verbose=False,
+                  device="cpu")
+    B = d["tpu"]["batch_scans"]
+    eng.process_scan(scans[0], rels[0])
+    handed = accepted = 0
+    for k in range(1, len(scans) - B + 1, B):
+        accepted += eng.process_scans_batched(scans[k:k + B], rels[k:k + B])
+        handed += B
+        assert eng.stats.scans == handed
+        assert len(eng.pose_trajectory) == accepted
+        assert accepted == handed - eng.stats.rejected
+    rest = len(scans) - 1 - handed
+    assert rest > 0
+    accepted += eng.process_scans_batched(scans[1 + handed:],
+                                          rels[1 + handed:])
+    assert eng.stats.scans == handed + (0 if lc else rest)
+    accepted += eng.finish()
+    assert eng.stats.scans == len(scans) - 1
+    assert len(eng.pose_trajectory) == accepted
+
+
 def test_per_scan_path_and_warmup_match_icp_tpu(dryrun):
     """process_scan one scan at a time (batch_scans 1: the map is painted
     per scan), after a warmup() on padding scans: the same flags and
