@@ -23,8 +23,12 @@ One pipeline at the three scale axes the engine keeps apart:
 icp_tpu fuses each scan's registration into one jitted dispatch with the
 pose carried on the device. Here the same steps run as eager ops on
 ``device``, the pose carry stays on the device, and the small per-scan
-outputs come back by non-blocking copies that are read at the drain (every
-64 scans and before every loop-closure check). The candidate lanes that
+outputs come back by non-blocking copies that are read at the drain. Each
+step drains the steps before it as soon as the card has finished them
+(asked without waiting, after the step's registration has waited on the
+card anyway), so a scan's pose is in the record when the next step
+returns; a drain that waits comes only when 64 steps are pending and
+before every loop-closure check. The candidate lanes that
 icp_tpu vmaps (padding unused lanes with the last candidate) run here one
 after another, the real candidates only.
 
@@ -474,8 +478,9 @@ class ScaledPipeline:
     def step(self, points: np.ndarray):
         """One scan: register -> pose -> node/edge -> map paint -> periodic
         loop-closure check -> online BA. ``points`` is (n, 2) sensor frame.
-        In submap mode the outputs are bookkept at the drain; call
-        finish() (or optimize()) after the last scan."""
+        In submap mode a step's outputs are bookkept by a later drain,
+        the next step's where the card has finished them; call finish()
+        (or optimize()) after the last scan."""
         with spans.span("scaled.pack"):
             sp, sm = pad_points(points[:self.cap], self.cap)
             sp, sm = self._t(sp), self._t(sm)
@@ -501,6 +506,15 @@ class ScaledPipeline:
                 out = self._fused_reg(sp, sm, idx % self.submap_kf)
         # paint the voxelized keyframe: the cloud sync_map can un-paint
         self._paint(out[6], out[7], out[0], out[1])
+        # _drain adds its own time to the wall
+        self.stats.wall_registration += time.perf_counter() - t0
+        if self._pending:
+            spans.count("scaled.ready_checks")
+            if self._pending_done():
+                spans.count("scaled.ready_drains")
+                self._pending_event = None     # finished: nothing to wait on
+                self._drain()
+        t0 = time.perf_counter()
         self._pending.append(_to_host(out))
         if self.device.type == "cuda":
             self._pending_event = torch.cuda.Event()
@@ -526,6 +540,11 @@ class ScaledPipeline:
                 t1 = time.perf_counter()
                 self._run_ba(self.ba_iters)
                 self.stats.wall_ba += time.perf_counter() - t1
+
+    def _pending_done(self) -> bool:
+        """Whether the card has finished the pending steps, asked without
+        waiting; on the CPU a step's work is done when its ops return."""
+        return self._pending_event is None or self._pending_event.query()
 
     @spans.spanned("scaled.drain")
     def _drain(self):

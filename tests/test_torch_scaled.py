@@ -274,6 +274,7 @@ def test_full_replay_keeps_steps_in_flight(scans):
     drained state."""
     pts, _ = scans
     pipe = _torch_pipe()
+    pipe._pending_done = lambda: False     # keep the steps in flight
     for p in pts[:10]:
         pipe.step(p)
     pipe.finish()
@@ -289,6 +290,79 @@ def test_full_replay_keeps_steps_in_flight(scans):
     pipe._map_dirty = True
     pipe.sync_map()
     np.testing.assert_array_equal(got, pipe.log_odds.numpy())
+
+
+def test_step_is_bookkept_one_call_later(scans):
+    """Each step drains the steps before it once the device has finished
+    them: after call k returns, the record holds steps 0..k-1."""
+    pts, _ = scans
+    pipe = _torch_pipe()
+    for k, p in enumerate(pts[:6]):
+        pipe.step(p)
+        assert len(pipe.trajectory) == len(pipe.kf_points) == k
+        assert pipe.stats.scans == pipe.pose_graph.n_nodes == k
+        assert len(pipe._pending) == 1
+    pipe.finish()
+    assert len(pipe.trajectory) == 6 and not pipe._pending
+
+
+def _watched_run(device, pts, never_ready: bool):
+    """The module's run with a closure check every 3 scans and a map read
+    after every step (the drains then leave different steps in flight at
+    each read), each drained step's gate flag noted through the bound
+    ``_drain`` as the benchmark's drivers note it. ``never_ready`` bookkeeps
+    only at the waiting drains: every 64 steps and before each check."""
+    pipe = TPipe(device, **dict(KW, lc_every=3))
+    if never_ready:
+        pipe._pending_done = lambda: False
+    drain, gate_ok = pipe._drain, []
+
+    def drain_noted():
+        pending = list(pipe._pending)
+        drain()
+        gate_ok.extend(bool(out[4]) for out in pending)
+
+    pipe._drain = drain_noted
+    for p in pts:
+        pipe.step(p)
+        pipe.sync_map()
+    pipe.finish()
+    pipe.sync_map()
+    return pipe, gate_ok
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_ready_drains_change_no_result(scans, device):
+    """Bookkeeping a step as soon as the device has finished it, rather
+    than at the next waiting drain, changes no result: through closure
+    checks, BAs and map reads, the trajectory, keyframes, graph, stats,
+    ATE and map are bit-equal, and every step passes through ``_drain``."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
+    pts, gt = scans
+    ready, ok_r = _watched_run(device, pts, never_ready=False)
+    late, ok_l = _watched_run(device, pts, never_ready=True)
+    assert ready.stats.ba_runs >= 2 and ready.stats.replayed_keyframes > 0
+    assert ok_r == ok_l and len(ok_r) == len(pts)
+    for a, b in ((ready.trajectory, late.trajectory),
+                 (ready.kf_points, late.kf_points),
+                 (ready.pose_graph.nodes, late.pose_graph.nodes),
+                 (ready.pose_graph._edges_z, late.pose_graph._edges_z),
+                 (ready.pose_graph._edges_om, late.pose_graph._edges_om)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for name in ("_edges_i", "_edges_j", "_edges_rb"):
+        assert getattr(ready.pose_graph, name) == getattr(late.pose_graph,
+                                                          name)
+    counts = {k: v for k, v in ready.stats.__dict__.items()
+              if not k.startswith("wall") and k != "partition_wall"}
+    assert counts == {k: late.stats.__dict__[k] for k in counts}
+    ref = _rel(gt)
+    assert _ate(ready.trajectory, ref) == _ate(late.trajectory, ref)
+    np.testing.assert_array_equal(ready.log_odds.cpu().numpy(),
+                                  late.log_odds.cpu().numpy())
 
 
 def test_scaled_cli_mode_cpu(tmp_path):

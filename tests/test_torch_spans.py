@@ -310,6 +310,9 @@ def test_scaled_steps_spans_and_syncs(monkeypatch):
     assert {"scaled.pack", "scaled.register", "map.paint", "scaled.drain",
             "scaled.keyframe", "scaled.closure_check", "scaled.ba",
             "scaled.replay"} <= top, top
+    c = rec.totals()["counts"]
+    # on the CPU every step that finds steps pending drains them at once
+    assert c["scaled.ready_drains"] == c["scaled.ready_checks"] > 20, c
     counts = _syncs(rec)
     assert "sync.scaled.drain_wait" not in counts      # no event on the CPU
     assert sum(counts.values()) == sum(probe.sites.values()), (
@@ -327,6 +330,7 @@ READERS = {
     "scaled.keyframe_ms_per_scan": 0.5,
     "kernel.nn_cuda.valid_pair_pct": 25.0,
     "icp.graph_chunk_pct": 75.0,
+    "scaled.ready_drain_pct": 80.0,
 }
 
 
@@ -347,6 +351,8 @@ def _hand_made_record():
         spans.count("nn.pairs_valid", (torch.tensor(10.0), torch.tensor(10)))
         spans.count("icp.graph_replays", 3)
         spans.count("icp.eager_chunks")
+        spans.count("scaled.ready_checks", 5)
+        spans.count("scaled.ready_drains", 4)
     rec = spans._prec
     ms = {"engine.submap": 5.0, "icp.core": 2.0, "icp.large": 10.0,
           "map.paint": 3.0, "map.replay": 5.0, "engine.fetch": 1.0,
